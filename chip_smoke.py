@@ -20,19 +20,43 @@ Phases (any failure exits non-zero, before the last line is printed):
              tolerance; times from CUDA events beside the plain version's,
              the bound and, for the resolve, torch.index_select's;
   5 model    the entry-size model (2 x 4000 points) on the card against the
-             same weights on the CPU, where the plain versions run.
+             same weights on the CPU, where the plain versions run;
+  6 train    the flagship training step (the same batch, AdamW, remat_blocks,
+             entry.build_training) in float32 and bfloat16: launch counts
+             reset just before one step and read just after (A, B, C and D
+             must each launch, and D once for every resolve whose table needs
+             a gradient, counted in the step's autograd graph), then 2
+             warm-up and 10 timed steps per dtype, the dtypes in turns, and
+             the step's own peak memory; every loss must be finite;
+  7 scatter  every window_scatter (kernel D) call of that step, replayed
+             against its plain version: f32 within 1e-5 of the output's
+             scale, bf16 within one bf16 step; times as in phase 4, beside
+             index_add_'s;
+  8 grads    one f32 train step at the entry size on the card, the same
+             weights and batch on the CPU in f32 and in float64: the loss and
+             every BN running statistic after the step, card against CPU;
+             the gradient tree's relative error of each f32 step against the
+             float64 one (the card's within TRAIN_WITNESS times the CPU's);
+             the same three steps with every ReLU and max smooth, where every
+             parameter's gradient on the card is within tolerance of the
+             CPU's (GRAD_ATOL); and the backward with BatchNorm on its running
+             statistics, every parameter's gradient within that tolerance.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
-a torch.profiler breakdown of one eval forward per dtype to phase 3.
+a torch.profiler breakdown of one eval forward per dtype to phase 3 and of
+one train step per dtype to phase 6.
 """
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+from torch.nn import functional as F
 
 # f32 operands round to bf16 partials at most once per (c, w) term: within
 # 1e-4 in f32 the two versions differ only in summation order.
@@ -53,6 +77,25 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 CLOCK_HZ = 2.0e9
 # eval forwards timed per dtype, after warm-up
 FWD_WARMUP, FWD_REPS = 2, 15
+# train steps timed per dtype, after warm-up
+STEP_WARMUP, STEP_REPS = 2, 10
+# window_scatter against its plain version: f32 atomics sum in another order
+# (1e-5 of the output's scale); in bf16 the f32 sums may round to
+# neighbouring bf16 values, one step being 2^-8 to 2^-7 of the value
+SCATTER_F32_REL = 1e-5
+SCATTER_BF16_RTOL = 2 ** -7
+# gradients, card against CPU, f32: each parameter's within 5e-3 of its
+# largest entry (a gradient that is zero but for rounding, a bias that
+# BatchNorm cancels, takes 1% of the largest in the tree), rtol 1e-3. The
+# train step's gradient has kinks within f32 rounding of these weights (ReLU
+# inputs near zero and near-ties of a max over neighbours, after train-mode
+# BatchNorm), and two correct f32 steps land on different sides of some. So
+# each f32 step is held to a float64 one: the card's gradient tree no
+# farther from it than TRAIN_WITNESS times the CPU's (measured on the H100:
+# 1.08e-2 against 1.18e-2 with the real kinks, 6.6e-5 against 1.0e-4 with
+# them smoothed), and per parameter only with every ReLU and max smooth.
+GRAD_ATOL, GRAD_RTOL, GRAD_FLOOR = 5e-3, 1e-3, 1e-2
+TRAIN_WITNESS = 2.0
 
 SOURCES = {
     "window_resolve": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:369"),
@@ -60,6 +103,7 @@ SOURCES = {
                         "pcf_tpu/ops/pallas/pconv_kernel.py:466"),
     "pconv_pe_conv_linear": ("pcf_torch/csrc/pconv_fused.cu",
                              "pcf_tpu/ops/pallas/pconv_kernel.py:498"),
+    "window_scatter": ("pcf_torch/csrc/window_scatter.cu", "pcf_tpu/ops/window.py:400"),
 }
 
 
@@ -114,27 +158,96 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def profile_forward(model, batch, dtype_name, top=12):
-    """torch.profiler over one eval forward: device busy time against the
-    wall time, the number of kernels launched, and the kernels that take
-    the most device time."""
+def profile_run(fn, label, top=12):
+    """torch.profiler over one call of fn (an eval forward or a train step):
+    device busy time against the wall time, the number of kernels launched,
+    and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        model.forward_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     # kernels only: an operator's own entry repeats its kernels' device time
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in dev) / 1e3
-    log(f"[profile] {dtype_name}: wall {wall:.3f} ms under the profiler, device busy "
+    log(f"[profile] {label}: wall {wall:.3f} ms under the profiler, device busy "
         f"{busy:.3f} ms ({busy / wall:.1%}), {sum(e.count for e in dev)} device kernels")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[profile] {dtype_name}: {e.self_device_time_total / 1e3:8.3f} ms "
+        log(f"[profile] {label}: {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+def grad_ratios(got: dict, want: dict):
+    """(parameters beyond tolerance, worst ratio to it, its name): each
+    gradient against GRAD_ATOL of its largest entry, floored, and GRAD_RTOL."""
+    tree_max = max(g.abs().max().item() for g in want.values())
+    over, worst, worst_key = 0, 0.0, None
+    for k, w in want.items():
+        atol = GRAD_ATOL * max(w.abs().max().item(), GRAD_FLOOR * tree_max)
+        ratio = ((got[k] - w).abs() / (atol + GRAD_RTOL * w.abs())).max().item()
+        over += ratio > 1.0
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    return over, worst, worst_key
+
+
+def tree_error(got: dict, want: dict) -> float:
+    """|got - want| / |want| over the whole gradient tree (L2)."""
+    num = sum((got[k] - w).pow(2).sum().item() for k, w in want.items())
+    return math.sqrt(num / sum(w.pow(2).sum().item() for w in want.values()))
+
+
+@contextlib.contextmanager
+def smooth_kinks():
+    """Every ReLU and leaky ReLU of the port replaced by softplus (slope*x +
+    (1 - slope)*softplus(x) for the leaky one) and every max over neighbours
+    (Tensor.amax) by logsumexp, so that the train step's gradient has no
+    kink for rounding to cross."""
+    relu, leaky_relu, softplus, amax = F.relu, F.leaky_relu, F.softplus, torch.Tensor.amax
+    F.relu = lambda x, inplace=False: softplus(x)
+    F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: (
+        negative_slope * x + (1 - negative_slope) * softplus(x))
+    torch.Tensor.amax = lambda x, dim, keepdim=False: torch.logsumexp(x, dim, keepdim)
+    try:
+        yield
+    finally:
+        F.relu, F.leaky_relu, torch.Tensor.amax = relu, leaky_relu, amax
+
+
+def train_step_grads(cfg, batch, device, dtype):
+    """(model, loss, gradients as f64 CPU tensors) of one train step of the
+    seed-1 model in `dtype` on `device`."""
+    from pcf_torch.entry import build_training
+
+    state, step = build_training(cfg, device=device, seed=1)
+    state.model.to(dtype)
+    state, metrics = step(state, batch.to(device, dtype), 0)
+    return state.model, metrics["loss"].item(), {
+        k: p.grad.cpu().double() for k, p in state.model.named_parameters()}
+
+
+def graph_scatters(root, windowed_edges_cls) -> int:
+    """The window_scatter launches that the backward from `root` must make:
+    resolve nodes whose table needs a gradient, plus window-mode fused
+    nodes whose features need one (their backward gathers through the
+    resolve again), in the autograd graph below `root`."""
+    seen, stack, n = set(), [root], 0
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        name = type(node).__name__
+        if name == "WindowResolveBackward" and node.needs_input_grad[0]:
+            n += 1
+        elif (name == "_FusedConvLinearBackward" and node.needs_input_grad[1]
+              and isinstance(node.edges, windowed_edges_cls)):
+            n += 1
+        stack.extend(f for f, _ in node.next_functions)
+    return n
 
 
 def main() -> int:
@@ -143,14 +256,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import pcf_torch.nn.fused as fused_mod
+    import pcf_torch.ops.kernels.window_resolve as resolve_mod
     import pcf_torch.ops.window as window_mod
-    from pcf_torch.entry import build, flagship_batch
+    import pcf_torch.parallel.mesh as mesh_mod
+    from pcf_torch.entry import build, build_training, flagship_batch
     from pcf_torch.ops.kernels import build as kbuild
     from pcf_torch.ops.kernels.pconv_fused import (
         launch_tile, pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
         pcf_conv_linear_plain)
     from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
+    from pcf_torch.ops.kernels.window_scatter import window_scatter, window_scatter_plain
     from pcf_torch.ops.window import WindowedEdges
+    from pcf_torch.train.loss import cross_entropy_loss
 
     t_start = time.time()
     # ---- 1 device -------------------------------------------------------
@@ -234,7 +351,8 @@ def main() -> int:
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         if "--profile" in sys.argv:
-            profile_forward(model, batch, dtype_name)
+            with torch.no_grad():
+                profile_run(lambda: model.forward_batch(batch), f"{dtype_name} eval forward")
         ts = times[dtype_name]
         med = statistics.median(ts)
         log(f"[slice] {dtype_name}: forward ms median {med:.3f} min {min(ts):.3f} "
@@ -353,10 +471,180 @@ def main() -> int:
         f"(logit scale {want[m].abs().max().item():.3e})")
     assert torch.allclose(got[m], want[m], **MODEL_TOL), f"model logits differ: {err:.3e}"
 
+    # ---- 6 train ---------------------------------------------------------
+    all_kernels = dict(kernels, window_scatter=window_scatter)
+    states, train_runs = {}, {}
+    for dtype_name in ("float32", "bfloat16"):
+        cfg_d = cfg.copy()
+        cfg_d.compute_dtype = dtype_name
+        states[dtype_name] = build_training(cfg_d, device="cuda", seed=0)
+    step_times = {d: [] for d in states}
+    losses = {d: [] for d in states}
+    for i in range(STEP_WARMUP + STEP_REPS):
+        for dtype_name, (state, step) in states.items():
+            counted = i == 0
+            if counted:
+                expected = []
+                real_loss = mesh_mod.cross_entropy_loss
+
+                def loss_and_graph(logits, *a, **kw):
+                    expected.append(graph_scatters(logits.grad_fn, WindowedEdges))
+                    return real_loss(logits, *a, **kw)
+
+                mesh_mod.cross_entropy_loss = loss_and_graph
+                rec = Recorder(resolve_mod, "window_scatter")
+                torch.cuda.synchronize()
+                for fn in all_kernels.values():
+                    fn.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch, i)
+            loss = metrics["loss"].item()  # waits for the step
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if counted:
+                launches = {k: fn.launches for k, fn in all_kernels.items()}
+                rec.restore()
+                mesh_mod.cross_entropy_loss = real_loss
+                for k, n in launches.items():
+                    assert n > 0, f"{k} was not launched by the train step"
+                assert launches["window_scatter"] == expected[0], (
+                    f"window_scatter launched {launches['window_scatter']} times, the "
+                    f"step's graph holds {expected[0]} resolves that need a gradient")
+                log(f"[train] {dtype_name}: launches per train step {launches} "
+                    f"(window_scatter expected {expected[0]})")
+                train_runs[dtype_name] = dict(launches=launches, calls=rec.calls)
+            losses[dtype_name].append(loss)
+            if i >= STEP_WARMUP:
+                step_times[dtype_name].append(ms)
+    for dtype_name, (state, step) in states.items():
+        assert all(math.isfinite(v) for v in losses[dtype_name]), losses[dtype_name]
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, STEP_WARMUP + STEP_REPS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if "--profile" in sys.argv:
+            profile_run(lambda: step(state, batch, 0), f"{dtype_name} train step")
+        ts = step_times[dtype_name]
+        med = statistics.median(ts)
+        log(f"[train] {dtype_name}: step ms median {med:.3f} min {min(ts):.3f} max "
+            f"{max(ts):.3f} ({STEP_REPS} steps after {STEP_WARMUP} warm-up, in turns with "
+            f"the other dtype); {valid / med * 1e3:.1f} valid points/s; peak memory "
+            f"{peak / 2**20:.1f} MiB, of which the step {(peak - resident) / 2**20:.1f} MiB; "
+            f"losses {[round(v, 5) for v in losses[dtype_name]]}")
+    del states, state, step
+
+    # ---- 7 scatter: kernel D against its plain version --------------------
+    for dtype_name, run in train_runs.items():
+        calls = run["calls"]
+        err = 0.0
+        with torch.no_grad():
+            for g, wr, lt, n_rows, dt in calls:
+                got, want = window_scatter(g, wr, lt, n_rows, dt), window_scatter_plain(
+                    g, wr, lt, n_rows, dt)
+                torch.cuda.synchronize()
+                scale = want.float().abs().max().item()
+                diff = (got.float() - want.float()).abs().max().item()
+                err = max(err, diff)
+                rtol = 0.0 if dt == torch.float32 else SCATTER_BF16_RTOL
+                assert torch.allclose(got.float(), want.float(), rtol=rtol,
+                                      atol=SCATTER_F32_REL * scale), (
+                    f"window_scatter {dtype_name}: max err {diff:.3e} (scale {scale:.3e})")
+            ms = cuda_ms(lambda: [window_scatter(*a) for a in calls])
+            plain_ms = cuda_ms(lambda: [window_scatter_plain(*a) for a in calls], reps=3)
+            # the yardstick: one index_add_ over the edges' rows (every row of
+            # these windows is in range, so the clamp changes nothing)
+            neis = [torch.gather(wr, 1, lt[:, 0].long()).reshape(-1).clamp(0, n - 1)
+                    for _, wr, lt, n, _ in calls]
+
+            def library():
+                return [torch.zeros(n, g.shape[-1], dtype=torch.float32,
+                                    device=g.device).index_add_(
+                            0, nei, g.reshape(-1, g.shape[-1]).float())
+                        for (g, _, _, n, _), nei in zip(calls, neis)]
+
+            lib_ms = cuda_ms(library)
+        tot_b = sum(g.numel() * g.element_size() + (wr.numel() + lt.numel()) * 4
+                    + n * g.shape[-1] * (4 + (2 if dt == torch.bfloat16 else 0))
+                    for g, wr, lt, n, dt in calls)
+        b_ms = tot_b / PEAK_BYTES * 1e3
+        results[("window_scatter", dtype_name)] = dict(
+            name="window_scatter", route="cuda", source=SOURCES["window_scatter"][0],
+            replaces=SOURCES["window_scatter"][1],
+            launches=run["launches"]["window_scatter"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
+            dtype=dtype_name)
+        log(f"[scatter] window_scatter {dtype_name}: {len(calls)} calls per train step, "
+            f"max abs err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"index_add_ {lib_ms:.3f} ms, bound {b_ms:.4f} ms by bytes "
+            f"({tot_b / 1e6:.1f} MB)")
+    del train_runs, run, calls
+
+    # ---- 8 grads: card against CPU ---------------------------------------
+    # the same step on the CPU in float64 is the reference that both f32
+    # steps are held to
+    runs8 = {"card": ("cuda", torch.float32), "CPU": ("cpu", torch.float32),
+             "f64": ("cpu", torch.float64)}
+    steps = {name: train_step_grads(cfg_s, batch_s, dev, dt)
+             for name, (dev, dt) in runs8.items()}
+    with smooth_kinks():
+        smooth = {name: train_step_grads(cfg_s, batch_s, dev, dt)
+                  for name, (dev, dt) in runs8.items()}
+    (gpu_model, gpu_loss, g_card), (cpu_model, cpu_loss, g_cpu), (_, _, g_64) = (
+        steps["card"], steps["CPU"], steps["f64"])
+    rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    e_card, e_cpu = tree_error(g_card, g_64), tree_error(g_cpu, g_64)
+    over, _, _ = grad_ratios(g_card, g_cpu)
+    log(f"[grads] entry size, one train step: loss card {gpu_loss:.7f} vs CPU "
+        f"{cpu_loss:.7f} (rel {rel:.2e}); gradient tree relative L2 error against the "
+        f"float64 CPU step: card {e_card:.3e}, CPU {e_cpu:.3e}; card against CPU "
+        f"{tree_error(g_card, g_cpu):.3e}, {over} of {len(g_cpu)} parameters beyond the "
+        f"per-parameter tolerance")
+    s_card, s_cpu, s_64 = (smooth[k][2] for k in ("card", "CPU", "f64"))
+    es_card, es_cpu = tree_error(s_card, s_64), tree_error(s_cpu, s_64)
+    over_s, worst_s, worst_key_s = grad_ratios(s_card, s_cpu)
+    log(f"[grads] the same step with every ReLU and max smooth (softplus, logsumexp): "
+        f"against the float64 CPU step card {es_card:.3e}, CPU {es_cpu:.3e}; card "
+        f"against CPU: worst gradient {worst_key_s} at {worst_s:.3f} of its tolerance, "
+        f"{over_s} beyond it")
+    assert rel <= 1e-5, f"train-step loss differs: {rel:.3e}"
+    for label, ec, eh in (("", e_card, e_cpu), ("smooth ", es_card, es_cpu)):
+        assert ec <= TRAIN_WITNESS * eh, (
+            f"the card's {label}train-step gradients are {ec:.3e} from the float64 step, "
+            f"more than {TRAIN_WITNESS:g} times the CPU's {eh:.3e}")
+    assert over_s == 0, f"smooth train-step gradient {worst_key_s} differs: {worst_s:.3f}"
+    cpu_state = cpu_model.state_dict()
+    for k, v in gpu_model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            assert torch.allclose(v.cpu(), cpu_state[k], **MODEL_TOL), f"BN statistic {k}"
+    log("[grads] BN running statistics after the step agree")
+    # the same backward with BatchNorm on its running statistics: every kernel
+    # of the step (A, B, C forward; D and the fused backward) without the
+    # batch statistics' amplification, held per parameter. Both sides take
+    # the CPU's weights after the step: AdamW's first step moves a weight by
+    # about the learning rate whatever its gradient's size, so a gradient
+    # near zero of another sign on the card would move it elsewhere.
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    grads = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        model.eval()
+        model.zero_grad(set_to_none=True)
+        b = batch_s.to(next(model.parameters()).device)
+        loss, _ = cross_entropy_loss(model.forward_batch(b), b.labels, mask=b.masks[0])
+        loss.backward()
+        grads[dev] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    over, worst, worst_key = grad_ratios(grads["cuda"], grads["cpu"])
+    log(f"[grads] the same weights, BatchNorm on running statistics: worst gradient "
+        f"{worst_key} at {worst:.3f} of its tolerance, {over} beyond it; tree relative "
+        f"L2 error {tree_error(grads['cuda'], grads['cpu']):.3e}")
+    assert over == 0, f"gradient {worst_key} differs: {worst:.3f} of its tolerance"
+    del steps, smooth, gpu_model, cpu_model, grads
+
     log(f"[done] {time.time() - t_start:.1f} s")
-    log("[kernels float32] " + json.dumps([results[(k, "float32")] for k in kernels]))
+    log("[kernels float32] " + json.dumps([results[(k, "float32")] for k in all_kernels]))
     log(smi)
-    print(json.dumps({"kernels": [results[(k, "bfloat16")] for k in kernels]}))
+    print(json.dumps({"kernels": [results[(k, "bfloat16")] for k in all_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

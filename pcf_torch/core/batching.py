@@ -4,7 +4,7 @@ Every pyramid level of a multi-scene batch is padded to a bucketed capacity
 and carries a validity mask and per-point scene ids; padded rows have
 neighbour index 0 and label = ignore_label. The arrays are those of
 pcf_tpu/core/batching.py, emitted as torch tensors on the CPU; `.to(device)`
-moves a whole batch.
+moves a whole batch (and may cast its floating-point arrays).
 """
 
 from __future__ import annotations
@@ -39,9 +39,15 @@ class PackedPyramid:
     edges_forward: tuple
     edges_propagate: tuple
 
-    def to(self, device) -> "PackedPyramid":
+    def to(self, device, dtype: torch.dtype | None = None) -> "PackedPyramid":
+        """The batch on `device`; with `dtype`, its floating-point arrays
+        (features, points, normals) cast to it."""
         def move(x):
-            return tuple(move(v) for v in x) if isinstance(x, tuple) else x.to(device)
+            if isinstance(x, tuple):
+                return tuple(move(v) for v in x)
+            if dtype is not None and isinstance(x, torch.Tensor) and x.is_floating_point():
+                return x.to(device, dtype)
+            return x.to(device)
 
         return PackedPyramid(**{f.name: move(getattr(self, f.name))
                                 for f in fields(self)})

@@ -3,8 +3,9 @@
 `flagship_batch` ports __graft_entry__._flagship: packed synthetic scenes at
 the PCF_Normal grid (5 levels, 8 heads, resblocks [0,2,4,6,6], mid_dim 16,
 USE_PE) with its config. `build` makes a model from a config with weights
-drawn from a seeded generator. With device=None both use "cuda" and raise
-when CUDA is absent; pass device="cpu" to run on the CPU.
+drawn from a seeded generator, and `build_training` that model with its
+optimizer and the single-device train step. With device=None they use "cuda"
+and raise when CUDA is absent; pass device="cpu" to run on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item, synthetic_scene
 from pcf_torch.models import PointConvFormer_Segmentation
 from pcf_torch.nn.init import init_params
+from pcf_torch.parallel.mesh import make_train_step
+from pcf_torch.train.state import create_train_state, make_optimizer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,3 +67,12 @@ def build(cfg, device=None, seed: int = 0) -> PointConvFormer_Segmentation:
     model = PointConvFormer_Segmentation(cfg)
     init_params(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+def build_training(cfg, device=None, seed: int = 0):
+    """(state, step): the model of `build` with cfg's optimizer in a
+    TrainState (its schedule counting one step per epoch), and the
+    single-device train step, step(state, batch, seed) -> (state, metrics)."""
+    tx, _ = make_optimizer(cfg)
+    state = create_train_state(build(cfg, device, seed), tx)
+    return state, make_train_step(cfg)

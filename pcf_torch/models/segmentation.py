@@ -13,11 +13,14 @@ from torch.nn import functional as F
 
 from pcf_torch.models.backbone import PCF_Backbone, _stage_geometry
 from pcf_torch.nn.init import Dense
-from pcf_torch.nn.layers import PointConvStridePE, PointConvTransposePE, dtype_of
+from pcf_torch.nn.layers import (PointConvStridePE, PointConvTransposePE, dropout,
+                                 dtype_of)
 from pcf_torch.nn.norm import LinearBN
 
 
 class PointConvFormer_Segmentation(nn.Module):
+    generator = None  # dropout_fc's, from nn.layers.set_generator
+
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
@@ -60,8 +63,7 @@ class PointConvFormer_Segmentation(nn.Module):
                         pointclouds[i], feat, edges_self[i], norms[i], None, None,
                         vi_features, localized, masks[i], None)
         fc = F.relu(self.fc1(feat, masks[0]))
-        if cfg.dropout_fc > 0.0:
-            fc = F.dropout(fc, cfg.dropout_fc, self.training)
+        fc = dropout(fc, cfg.dropout_fc, self.training, self.generator)
         return self.fc2(fc)
 
     def forward_batch(self, batch):

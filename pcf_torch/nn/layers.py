@@ -14,7 +14,10 @@ same sub-module names:
 With cfg.USE_PALLAS_KERNEL (nn/fused.fused_wins), a layer's gather +
 guidance/PE + contraction + linear runs in one fused kernel
 (FusedConvLinear); otherwise it runs the unfused ops and a LinearBN.
-Training mode is the module's `training` flag.
+Training mode is the module's `training` flag. Dropout and DropPath draw
+from an explicit torch.Generator that the train step hands every module with
+`set_generator` (pcf_tpu folds a fresh key per step), never from the global
+random state.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from pcf_torch.ops.gather import index_points, index_points_multi
 from pcf_torch.ops.pconv import guided_contraction, pconv
 from pcf_torch.ops.vi_transform import VI_coordinate_transform
 
-_NOT_PORTED = ("fused_eval", "flat_geom", "cm_geom", "spatial_axis")
+_NOT_PORTED = ("fused_eval", "flat_geom", "cm_geom", "spatial_axis", "remat_layers",
+               "remat_deconv")
 
 
 def check_ported(cfg) -> None:
@@ -55,9 +59,36 @@ def _highest(cfg) -> bool:
     return cfg.get("matmul_precision", "default") == "highest"
 
 
+def set_generator(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Hand `generator` to every module of `model` that draws random numbers
+    in training (dropout, DropPath)."""
+    for m in model.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
+
+
+def _uniform(x, shape, generator):
+    if generator is None:
+        raise RuntimeError("dropout and DropPath in training draw from an explicit "
+                           "torch.Generator: set one with nn.layers.set_generator")
+    return torch.rand(shape, generator=generator, device=x.device)
+
+
+def dropout(x, rate: float, training: bool, generator):
+    """flax's Dropout: keep each element with probability 1 - rate, scaled
+    by 1 / (1 - rate)."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    return torch.where(_uniform(x, x.shape, generator) < keep, x / keep,
+                       torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
     """Stochastic depth on the residual branch: one keep/drop decision per
     call for the whole packed batch, scaled by 1/keep when kept."""
+
+    generator = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -67,9 +98,8 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        if torch.rand((), device=x.device) < keep:
-            return x / keep
-        return torch.zeros_like(x)
+        return torch.where(_uniform(x, (), self.generator) < keep, x / keep,
+                           torch.zeros_like(x))
 
 
 def _gathered_inputs(nei_inds, dense_xyz, center_xyz, feat_tensors,
@@ -105,14 +135,10 @@ def _weightnet_input(cfg, localized_xyz, gathered_norm, center_norm, vi_features
     return localized_xyz
 
 
-def _dropout(cfg, x, training):
-    if cfg.dropout_rate > 0.0:
-        x = F.dropout(x, cfg.dropout_rate, training)
-    return x
-
-
 class PointConv(nn.Module):
     """First-layer (VI-)PointConv without bottleneck."""
+
+    generator = None  # dropout's, from set_generator
 
     def __init__(self, in_channel: int, out_channel: int, cfg,
                  weightnet: Sequence[int] = (9, 16), USE_VI: bool | None = None):
@@ -163,7 +189,7 @@ class PointConv(nn.Module):
             if cfg.USE_PE:
                 gathered = torch.cat([gathered, wni], dim=-1)
             new_feat = self.linear(pconv(gathered, weights, _highest(cfg)), out_mask)
-        new_feat = _dropout(cfg, F.relu(new_feat), self.training)
+        new_feat = dropout(F.relu(new_feat), cfg.dropout_rate, self.training, self.generator)
         return new_feat, wni
 
 
@@ -171,6 +197,8 @@ class PointConvStridePE(nn.Module):
     """Bottlenecked PointConv with positional encoding and residual
     shortcut: the strided downsampling conv, and the same-level residual
     block."""
+
+    generator = None  # dropout's, from set_generator
 
     def __init__(self, in_channel: int, out_channel: int, cfg,
                  weightnet: Sequence[int] = (9, 16)):
@@ -232,7 +260,7 @@ class PointConvStridePE(nn.Module):
         else:
             gathered = torch.cat([gfeats[0], feat_pe], dim=-1)
             new_feat = self.linear(pconv(gathered, weights, _highest(cfg)), out_mask)
-        new_feat = _dropout(cfg, F.relu(new_feat), self.training)
+        new_feat = dropout(F.relu(new_feat), cfg.dropout_rate, self.training, self.generator)
         new_feat = self.unary2(new_feat, out_mask)
 
         # shortcut: max-pooled original features when strided
@@ -246,6 +274,8 @@ class PointConvStridePE(nn.Module):
 class PCFLayer(nn.Module):
     """PointConvFormer layer: conv weights modulated by feature-difference
     guidance."""
+
+    generator = None  # dropout's, from set_generator
 
     def __init__(self, in_channel: int, out_channel: int, cfg,
                  weightnet: Sequence[int] = (9, 16), num_heads: int = 4,
@@ -327,7 +357,7 @@ class PCFLayer(nn.Module):
             new_feat = pconv(guided_contraction(gfeats[1], guidance_score), weights,
                              _highest(cfg))
             new_feat = self.linear(new_feat, out_mask)
-        new_feat = _dropout(cfg, F.relu(new_feat), self.training)
+        new_feat = dropout(F.relu(new_feat), cfg.dropout_rate, self.training, self.generator)
         new_feat = self.unary2(new_feat, out_mask)
 
         sparse_feats = gfeats[-1].amax(dim=1) if strided else dense_feats
@@ -340,6 +370,8 @@ class PCFLayer(nn.Module):
 class PointConvTransposePE(nn.Module):
     """Decoder upsampling conv: features from the sparse level onto the
     dense one, plus the encoder skip, then mlp2."""
+
+    generator = None  # dropout's, from set_generator
 
     def __init__(self, in_channel: int, out_channel: int, cfg,
                  weightnet: Sequence[int] = (9, 16), mlp2: Sequence[int] | None = None):
@@ -397,7 +429,7 @@ class PointConvTransposePE(nn.Module):
         new_feat = F.relu(new_feat)
         if dense_feats is not None:  # encoder skip
             new_feat = new_feat + dense_feats
-        new_feat = _dropout(cfg, new_feat, self.training)
+        new_feat = dropout(new_feat, cfg.dropout_rate, self.training, self.generator)
         for i in range(self.n_mlp2):
             new_feat = F.relu(getattr(self, f"mlp2_convs_{i}")(new_feat, out_mask))
         return new_feat, wni

@@ -3,23 +3,43 @@
 A packed batch is padded to static shapes, so batch statistics must leave
 the padded rows out; torch.nn.BatchNorm1d cannot. MaskedBatchNorm follows
 pcf_tpu/nn/norm.py exactly:
-  * masked single-pass statistics E[x^2] - E[x]^2 in f32, clamped at 0,
+  * masked single-pass statistics E[x^2] - E[x]^2 in f32 (f64 for an f64
+    input), clamped at 0,
     over every axis but the last;
   * in training, running = (1 - m) * running + m * batch with the unbiased
     batch variance (momentum 0.1, torch's convention); normalisation uses
     the biased variance; eps 1e-5;
   * in eval, the running statistics.
 The output keeps the input's dtype. Training mode is the module's
-`training` flag.
+`training` flag; inside `frozen_running_stats()` training leaves the running
+statistics as they are (the recompute of a rematerialised block,
+nn/resstack.py).
 """
 
 from __future__ import annotations
+
+import contextvars
+from contextlib import contextmanager
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from pcf_torch.nn.init import Dense
+
+
+_FROZEN = contextvars.ContextVar("frozen_running_stats", default=False)
+
+
+@contextmanager
+def frozen_running_stats():
+    """MaskedBatchNorm in training moves no running statistic inside this
+    context (in this thread: autograd runs a recompute in its own)."""
+    token = _FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _FROZEN.reset(token)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -35,26 +55,28 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        acc = torch.promote_types(x.dtype, torch.float32)
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            xf = x.float().reshape(-1, self.features)
+            xf = x.to(acc).reshape(-1, self.features)
             if mask is None:
                 cnt = torch.tensor(float(xf.shape[0]), device=x.device)
                 s, s2 = xf.sum(0), (xf * xf).sum(0)
             else:
-                m = mask.to(torch.float32).reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+                m = mask.to(acc).reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
                 m = m.expand(x.shape[:-1] + (1,)).reshape(-1, 1)
                 cnt = m.sum()
                 s, s2 = (xf * m).sum(0), (xf * xf * m).sum(0)
             cnt = cnt.clamp_min(1.0)
             mean = s / cnt
             var = (s2 / cnt - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
-        y = (x.float() - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+            if not _FROZEN.get():
+                with torch.no_grad():
+                    unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        y = (x.to(acc) - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
 

@@ -13,14 +13,15 @@ keeps the [M, Ct*W] contraction output out of device memory.
 Each wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors, or raises; there is no fallback. `edges` is either the
 [M, K] int32 index array or a WindowedEdges, whose rows the kernel resolves
-itself. The slice is forward only: on CUDA an input that requires grad
-raises.
+itself. Both are differentiable: the backward is pcf_tpu's, the autograd of
+the same composition recomputed on the saved inputs (_FusedConvLinear).
 
 Numerics (both versions): the K-reduction in f32; when feats, the
 guidance/PE rows and v are all bf16, the [M, Ct*W] partials and L are rounded
 to bf16 before the projection, which accumulates in f32 (pcf_tpu's
 _contract_and_project). Operands of mixed dtypes all run in f32. Output f32
-[M, O].
+[M, O]. The plain versions also take f64 operands and then run in f64 (a
+reference for rounding studies; the kernels take f32 and bf16 only).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import functools
 import torch
 
 from pcf_torch.ops.kernels import build
-from pcf_torch.ops.kernels.window_resolve import window_resolve_plain
+from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
 from pcf_torch.ops.window import WindowedEdges
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -47,42 +48,64 @@ def _gather_plain(feats, edges) -> torch.Tensor:
     return feats[edges.long().clamp(0, feats.shape[0] - 1)]
 
 
+def _gather_grad(feats, edges) -> torch.Tensor:
+    """The backward's gather, differentiable in feats: WindowedEdges through
+    the window resolve (kernels A and D on the card, as pcf_tpu's VJP runs
+    _resolve and _scatter_to_windows), plain edges by clamped indexing."""
+    if isinstance(edges, WindowedEdges):
+        M, K = edges.nei.shape
+        return window_resolve(feats, edges.window_rows,
+                              edges.localT).reshape(M, K, -1)
+    return feats[edges.long().clamp(0, feats.shape[0] - 1)]
+
+
 def _common_dtype(*operands):
     """The kernels' multiplicand type: bf16 iff every operand is bf16
-    (pcf_tpu's compute_dtype contract), else f32 for all."""
+    (pcf_tpu's compute_dtype contract), else f32 for all (f64 if any is)."""
     if all(t.dtype == torch.bfloat16 for t in operands):
         return operands
-    return tuple(t.float() for t in operands)
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in operands), torch.float32)
+    return tuple(t.to(dt) for t in operands)
 
 
 def _project_plain(x, weights, linear_w, linear_b, bf16: bool):
     M = x.shape[0]
-    s = torch.einsum("mkc,mkw->mcw", x, weights.float()).reshape(M, -1)
-    lw = linear_w.float()
+    s = torch.einsum("mkc,mkw->mcw", x, weights.to(x.dtype)).reshape(M, -1)
+    lw = linear_w.to(x.dtype)
     if bf16:
         s, lw = s.bfloat16().float(), lw.bfloat16().float()
-    return torch.addmm(linear_b.float(), s, lw)
+    return torch.addmm(linear_b.to(x.dtype), s, lw)
+
+
+def _compose(gather, guided, feats, edges, extra, weights, linear_w, linear_b):
+    """Kernel B (guided) or C as a composition of PyTorch operations: the
+    gather, then the guidance modulation or the PE concatenation, then the
+    K-contraction and the projection, with the kernels' bf16 rounding."""
+    if extra is None:
+        extra = weights.new_empty(weights.shape[:2] + (0,))
+    feats, extra, weights = _common_dtype(feats, extra, weights)
+    acc = torch.promote_types(feats.dtype, torch.float32)
+    x = gather(feats, edges).to(acc)
+    if guided:
+        M, K, C = x.shape
+        H = extra.shape[-1]
+        x = (x.reshape(M, K, C // H, H) * extra.to(acc)[:, :, None, :]).reshape(M, K, C)
+    else:
+        x = torch.cat([x, extra.to(acc)], dim=-1)
+    return _project_plain(x, weights, linear_w, linear_b,
+                          feats.dtype == torch.bfloat16)
 
 
 def pcf_conv_linear_plain(feats, edges, guidance, weights, linear_w, linear_b):
     """Plain PyTorch version of kernel B."""
-    feats, guidance, weights = _common_dtype(feats, guidance, weights)
-    x = _gather_plain(feats, edges).float()
-    M, K, C = x.shape
-    H = guidance.shape[-1]
-    x = (x.reshape(M, K, C // H, H) * guidance.float()[:, :, None, :]).reshape(M, K, C)
-    return _project_plain(x, weights, linear_w, linear_b,
-                          feats.dtype == torch.bfloat16)
+    return _compose(_gather_plain, True, feats, edges, guidance, weights,
+                    linear_w, linear_b)
 
 
 def pconv_pe_conv_linear_plain(feats, edges, add, weights, linear_w, linear_b):
     """Plain PyTorch version of kernel C; `add` [M, K, P] may be None."""
-    if add is None:
-        add = weights.new_empty(weights.shape[:2] + (0,))
-    feats, add, weights = _common_dtype(feats, add, weights)
-    x = torch.cat([_gather_plain(feats, edges).float(), add.float()], dim=-1)
-    return _project_plain(x, weights, linear_w, linear_b,
-                          feats.dtype == torch.bfloat16)
+    return _compose(_gather_plain, False, feats, edges, add, weights,
+                    linear_w, linear_b)
 
 
 @functools.cache
@@ -115,10 +138,6 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
     tensors = (feats, extra, weights, linear_w, linear_b) + idx
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all inputs must be on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} on CUDA is forward only; its backward comes with the "
-            "training path")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     if feats.dtype not in _DTYPES or extra.dtype != feats.dtype \
@@ -166,32 +185,53 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
     return out
 
 
+class _FusedConvLinear(torch.autograd.Function):
+    """Forward: kernel B (guided) or C, or its plain version on the CPU.
+    Backward: pcf_tpu's VJP of the fused kernels (pconv_kernel.py:224-235,
+    :481-491), the autograd of the composition the kernel computes,
+    recomputed on the saved inputs. Its window-mode gather goes through the
+    window resolve, so on the card the backward launches kernels A and D."""
+
+    @staticmethod
+    def forward(ctx, guided, feats, edges, extra, weights, linear_w, linear_b):
+        ctx.guided, ctx.edges = guided, edges
+        ctx.save_for_backward(feats, extra, weights, linear_w, linear_b)
+        if feats.device.type == "cpu":
+            return _compose(_gather_plain, guided, feats, edges, extra, weights,
+                            linear_w, linear_b)
+        if extra is None:
+            extra = weights.new_empty(weights.shape[:2] + (0,))
+        feats, extra, weights = _common_dtype(feats, extra, weights)
+        wrapper = pcf_conv_linear if guided else pconv_pe_conv_linear
+        out = _launch(wrapper.__name__, feats, edges, extra, weights, linear_w, linear_b)
+        wrapper.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = (ctx.needs_input_grad[1],) + ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            ins = [t if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            out = _compose(_gather_grad, ctx.guided, ins[0], ctx.edges, *ins[1:])
+            wrt = [t for t in ins if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        d = [next(grads) if t is not None and t.requires_grad else None for t in ins]
+        return None, d[0], None, *d[1:]
+
+
 def pcf_conv_linear(feats, edges, guidance, weights, linear_w, linear_b):
     """Kernel B: feats [N, C], edges [M, K] or WindowedEdges, guidance
     [M, K, H], weights [M, K, W], linear_w [C*W, O], linear_b [O] -> f32 [M, O]."""
-    if feats.device.type == "cpu":
-        return pcf_conv_linear_plain(feats, edges, guidance, weights,
-                                     linear_w, linear_b)
-    feats, guidance, weights = _common_dtype(feats, guidance, weights)
-    out = _launch("pcf_conv_linear", feats, edges, guidance, weights,
-                  linear_w, linear_b)
-    pcf_conv_linear.launches += 1
-    return out
+    return _FusedConvLinear.apply(True, feats, edges, guidance, weights,
+                                  linear_w, linear_b)
 
 
 def pconv_pe_conv_linear(feats, edges, add, weights, linear_w, linear_b):
     """Kernel C: as kernel B with PE features add [M, K, P] (P >= 0, or None)
     appended to the gathered rows; linear_w is [(C+P)*W, O]."""
-    if feats.device.type == "cpu":
-        return pconv_pe_conv_linear_plain(feats, edges, add, weights,
-                                          linear_w, linear_b)
-    if add is None:
-        add = weights.new_empty(weights.shape[:2] + (0,))
-    feats, add, weights = _common_dtype(feats, add, weights)
-    out = _launch("pconv_pe_conv_linear", feats, edges, add, weights,
-                  linear_w, linear_b)
-    pconv_pe_conv_linear.launches += 1
-    return out
+    return _FusedConvLinear.apply(False, feats, edges, add, weights,
+                                  linear_w, linear_b)
 
 
 pcf_conv_linear.launches = 0

@@ -5,9 +5,13 @@ _windowed_take, impl "pallas"). The CUDA source, csrc/window_resolve.cu,
 says why the H100 needs no one-hot product for it, what bounds it (bytes)
 and how its threads copy rows.
 
-`window_resolve` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, or raises; there is no fallback between the two.
-The slice is forward only: on CUDA an input that requires grad raises.
+`window_resolve` is differentiable in the table, as pcf_tpu's custom VJP
+_windowed_take is: its forward is kernel A and its backward kernel D
+(ops/kernels/window_scatter.py), which drops the gradient of out-of-range
+window rows as pcf_tpu's scatter-add (mode="drop") does. Each takes its plain
+version for CPU tensors and launches its kernel for CUDA tensors, or raises;
+there is no fallback between the two. The backward runs only when the table
+needs a gradient: geometry tables need none.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import functools
 import torch
 
 from pcf_torch.ops.kernels import build
+from pcf_torch.ops.kernels.window_scatter import window_scatter
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -46,10 +51,6 @@ def _check(table, window_rows, localT):
         raise ValueError(f"window_resolve takes CPU or CUDA tensors, got {table.device}")
     if any(t.device != table.device for t in (window_rows, localT)):
         raise ValueError("window_resolve: all inputs must be on one device")
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise NotImplementedError(
-            "window_resolve on CUDA is forward only; its backward kernel comes "
-            "with the training path")
     if table.dtype not in _DTYPES or table.dim() != 2:
         raise ValueError(f"window_resolve: table must be a 2-D float32 or "
                          f"bfloat16 tensor, got {table.dtype} {tuple(table.shape)}")
@@ -67,11 +68,7 @@ def _check(table, window_rows, localT):
         raise ValueError("window_resolve: empty table")
 
 
-def window_resolve(table: torch.Tensor, window_rows: torch.Tensor,
-                   localT: torch.Tensor) -> torch.Tensor:
-    """[N, C] table, [T, Wsz] window rows, [T, 1, Mt*K] slots -> [T, Mt*K, C]."""
-    if table.device.type == "cpu":
-        return window_resolve_plain(table, window_rows, localT)
+def _launch(table, window_rows, localT):
     _check(table, window_rows, localT)
     T, Wsz = window_rows.shape
     MtK = localT.shape[-1]
@@ -89,6 +86,33 @@ def window_resolve(table: torch.Tensor, window_rows: torch.Tensor,
         raise RuntimeError(f"window_resolve launch failed with CUDA error {err}")
     window_resolve.launches += 1
     return out
+
+
+class WindowResolve(torch.autograd.Function):
+    """Forward: kernel A (its plain version on the CPU). Backward: kernel D
+    (its plain version on the CPU), when the table needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, table, window_rows, localT):
+        ctx.save_for_backward(window_rows, localT)
+        ctx.table_rows, ctx.table_dtype = table.shape[0], table.dtype
+        if table.device.type == "cpu":
+            return window_resolve_plain(table, window_rows, localT)
+        return _launch(table, window_rows, localT)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        window_rows, localT = ctx.saved_tensors
+        return (window_scatter(g.contiguous(), window_rows, localT, ctx.table_rows,
+                               ctx.table_dtype), None, None)
+
+
+def window_resolve(table: torch.Tensor, window_rows: torch.Tensor,
+                   localT: torch.Tensor) -> torch.Tensor:
+    """[N, C] table, [T, Wsz] window rows, [T, 1, Mt*K] slots -> [T, Mt*K, C]."""
+    return WindowResolve.apply(table, window_rows, localT)
 
 
 window_resolve.launches = 0

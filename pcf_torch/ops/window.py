@@ -10,7 +10,9 @@ Device half: `windowed_take` returns table[edges.nei] by resolving every
 edge through its tile's window. On CUDA it launches the window_resolve
 kernel (ops/kernels/window_resolve.py); on the CPU it runs that kernel's
 plain PyTorch version. Both are exact selections, equal bit for bit to
-table[nei.clamp(0, N-1)].
+table[nei.clamp(0, N-1)]. It is differentiable in the table: the backward
+is the window_scatter kernel (or its plain version), which drops the
+gradient of out-of-range rows as pcf_tpu's custom VJP does.
 """
 
 from __future__ import annotations
@@ -143,7 +145,8 @@ def build_windows(nei: np.ndarray, tile: int = 128, window: int | None = None,
 # --------------------------------------------------------------------------
 
 def windowed_take(table: torch.Tensor, edges: WindowedEdges) -> torch.Tensor:
-    """table[edges.nei] via the tile windows: [N, C] -> [M, K, C]."""
+    """table[edges.nei] via the tile windows: [N, C] -> [M, K, C];
+    differentiable in `table`."""
     M, K = edges.nei.shape
     out = window_resolve(table.contiguous(), edges.window_rows, edges.localT)
     return out.reshape(M, K, table.shape[-1])

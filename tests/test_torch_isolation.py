@@ -1,5 +1,6 @@
 """pcf_torch stands alone: no module of it, and nothing chip_smoke.py
-imports, loads jax, flax or pcf_tpu; entry points default to the card and
+imports, loads jax, flax, optax or pcf_tpu (nor, at import, yaml); entry
+points default to the card and
 refuse to run without one; chip_smoke.py fails without the card or without
 the repository."""
 
@@ -21,7 +22,7 @@ for m in pkgutil.walk_packages(pcf_torch.__path__, "pcf_torch."):
     importlib.import_module(m.name)
 import chip_smoke  # its module-level imports; main() needs the card
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pcf_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pcf_tpu", "yaml"))
 assert not bad, bad
 print("modules", sum(n.startswith("pcf_torch") for n in sys.modules))
 """
@@ -40,20 +41,26 @@ def test_no_jax_flax_or_pcf_tpu_loaded():
 
 
 def test_entry_points_default_to_the_card():
-    from pcf_torch.config import Config, get_default_configs
-    from pcf_torch.entry import build, flagship_batch
+    from pcf_torch.config import Config, get_default_configs, get_default_training_cfgs
+    from pcf_torch.entry import build, build_training, flagship_batch
 
-    cfg = get_default_configs(Config(), num_level=3, base_dim=8)
+    cfg = get_default_training_cfgs(get_default_configs(Config(), num_level=3, base_dim=8))
     cfg.update(guided_level=0, num_heads=2, resblocks=[0, 1, 1], mid_dim=[4, 4, 4],
-               num_classes=5)
+               num_classes=5, milestones=[100], warmup_epochs=1)
     if torch.cuda.is_available():
         assert next(build(cfg).parameters()).device.type == "cuda"
+        assert next(build_training(cfg)[0].model.parameters()).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         build(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        build_training(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
         flagship_batch(level0_points=300, bucket=128)
     assert next(build(cfg, device="cpu").parameters()).device.type == "cpu"
+    state, step = build_training(cfg, device="cpu")
+    assert next(state.model.parameters()).device.type == "cpu" and state.step == 0
+    assert callable(step)
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -33,11 +33,12 @@ VI_TOL = dict(atol=1e-5, rtol=1e-5)
 N, M, K, TILE, WIN = 300, 64, 8, 16, 128
 
 
-def _edges(seed=0):
+def _edges(seed=0, bad=(N + 5, -2, N)):
     """Windowed edges over N rows, tile 16, K 8 (128 edge slots per tile,
-    so a window of 128 always holds); both packages' containers."""
+    so a window of 128 always holds); both packages' containers. The last
+    point's first edges are the out-of-range rows `bad`."""
     nei = np.random.default_rng(seed).integers(0, N, size=(M, K)).astype(np.int32)
-    nei[-1, :3] = [N + 5, -2, N]  # out-of-range rows clamp, as jnp.take(mode="clip")
+    nei[-1, :len(bad)] = bad  # out-of-range rows clamp, as jnp.take(mode="clip")
     return (j_window.build_windows(nei, tile=TILE, window=WIN),
             t_window.build_windows(nei, tile=TILE, window=WIN))
 
@@ -193,3 +194,114 @@ def test_fused_plain_versions_bf16_round_partials():
                           _t(w).to(b16).float(), _t(lw), _t(lb))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=2e-2)
     assert not torch.equal(got, f32)  # the bf16 rounding is really applied
+
+
+# ---- gradients: the resolve's backward (kernel D's plain version) and the
+# fused kernels' autograd, against jax.vjp of pcf_tpu's custom VJPs with the
+# Pallas resolve in interpret mode
+
+@pytest.fixture
+def pallas_resolve(monkeypatch):
+    """pcf_tpu's fused VJPs read the resolve implementation at trace time."""
+    monkeypatch.setattr(j_window, "_RESOLVE_IMPL", "pallas")
+
+
+def test_windowed_take_gradient_drops_out_of_range_rows():
+    """f32 at tests/test_window.py's 3e-5. Rows N+5, -2 and N are clamped in
+    the forward but their gradient is dropped, as pcf_tpu's scatter-add
+    (mode="drop") drops N+5 and N; clamped indexing would add it to rows 0
+    and N-1. pcf_tpu wraps the negative row -2 to N-2 in that scatter (jnp
+    index normalisation) although its forward reads row 0 for it; the port
+    drops it (ROADMAP.md Queue 3), so row N-2 is compared without it."""
+    je, te = _edges(11)
+    rng = np.random.default_rng(12)
+    tab = rng.standard_normal((N, 12)).astype(np.float32)
+    g = rng.standard_normal((M, K, 12)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: j_window.windowed_take(t, je, interpret=True,
+                                                      impl="pallas"), jnp.asarray(tab))
+    want = np.array(vjp(jnp.asarray(g))[0])
+    want[N - 2] -= g[M - 1, 1]  # the edge with row -2
+    ttab = _t(tab).requires_grad_(True)
+    (got,) = torch.autograd.grad(t_window.windowed_take(ttab, te), ttab, _t(g))
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=1e-6)
+    clamped = torch.autograd.grad(ttab[te.nei.long().clamp(0, N - 1)], ttab, _t(g))[0]
+    assert not torch.allclose(clamped[[0, N - 1]], got[[0, N - 1]])
+
+
+def test_windowed_take_gradient_bf16_sums_in_f32():
+    """tests/test_window.py:95: every edge on row 0, bf16 cotangents of 1;
+    the f32 sum then one cast gives N*K exactly."""
+    n_pts, k = 256, 16
+    te = t_window.build_windows(np.zeros((n_pts, k), np.int32), tile=128, window=128)
+    tab = torch.zeros(n_pts, 4, dtype=torch.bfloat16, requires_grad=True)
+    t_window.windowed_take(tab, te).float().sum().backward()
+    assert tab.grad.dtype == torch.bfloat16
+    assert float(tab.grad[0, 0]) == n_pts * k
+    assert float(tab.grad[1:].abs().max()) == 0.0
+
+
+def _fused_inputs(seed, C, E, W, O, guided):
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((N, C)).astype(np.float32)
+    extra = (rng.uniform(size=(M, K, E)) if guided
+             else rng.standard_normal((M, K, E))).astype(np.float32)
+    w = rng.standard_normal((M, K, W)).astype(np.float32)
+    Ct = C if guided else C + E
+    lw = (rng.standard_normal((Ct * W, O)) / 8).astype(np.float32)
+    lb = rng.standard_normal(O).astype(np.float32)
+    g = rng.standard_normal((M, O)).astype(np.float32)
+    return feats, extra, w, lw, lb, g
+
+
+@pytest.mark.parametrize("guided", [True, False], ids=["B", "C"])
+@pytest.mark.parametrize("windowed", [True, False], ids=["window", "nei"])
+def test_fused_kernel_gradients(pallas_resolve, guided, windowed):
+    """Kernels B and C through their autograd Function against jax.vjp of
+    _pcf_linear_win / _pconv_pe_linear_win / _pcf_linear / _pconv_pe_linear,
+    every input's gradient, at the fused kernels' atol 1e-4; the edges hold
+    rows past the table (dropped in window mode, clamped in nei mode, on
+    both sides)."""
+    from pcf_tpu.ops.pallas import pconv_kernel as jk
+
+    C, E, W, O = 16, 4 if guided else 3, 4, 12
+    je, te = _edges(13, bad=(N + 5, N))
+    inputs = _fused_inputs(14, C, E, W, O, guided)
+    feats, extra, w, lw, lb, g = map(jnp.asarray, inputs)
+    if windowed:
+        fn = jk._pcf_linear_win if guided else jk._pconv_pe_linear_win
+        _, vjp = jax.vjp(lambda *a: fn((M, K), True, a[0], je.window_rows, je.localT,
+                                       *a[1:]), feats, extra, w, lw, lb)
+    else:
+        fn = jk._pcf_linear if guided else jk._pconv_pe_linear
+        _, vjp = jax.vjp(lambda *a: fn(a[0], je.nei, *a[1:], True), feats, extra, w, lw, lb)
+    want = vjp(g)
+    ts = [_t(x).requires_grad_(True) for x in inputs[:5]]
+    kern = pcf_conv_linear if guided else pconv_pe_conv_linear
+    out = kern(ts[0], te if windowed else te.nei, *ts[1:])
+    got = torch.autograd.grad(out, ts, _t(inputs[5]))
+    for name, a, b in zip(("feats", "extra", "weights", "linear_w", "linear_b"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_kernel_gradients_random_sizes(pallas_resolve, seed):
+    """Random widths, window mode, guided and PE: 1e-3 with rtol 1e-4, the
+    op tolerance for random sizes."""
+    from pcf_tpu.ops.pallas import pconv_kernel as jk
+
+    r = np.random.default_rng(100 + seed)
+    H = int(r.choice([2, 4]))
+    C, P, W, O = H * int(r.integers(1, 6)), int(r.integers(1, 9)), int(r.integers(1, 9)), \
+        int(r.integers(4, 40))
+    je, te = _edges(20 + seed, bad=(N + 5, N))
+    for guided, E in ((True, H), (False, P)):
+        inputs = _fused_inputs(30 + seed, C, E, W, O, guided)
+        feats, extra, w, lw, lb, g = map(jnp.asarray, inputs)
+        fn = jk._pcf_linear_win if guided else jk._pconv_pe_linear_win
+        _, vjp = jax.vjp(lambda *a: fn((M, K), True, a[0], je.window_rows, je.localT,
+                                       *a[1:]), feats, extra, w, lw, lb)
+        ts = [_t(x).requires_grad_(True) for x in inputs[:5]]
+        out = (pcf_conv_linear if guided else pconv_pe_conv_linear)(ts[0], te, *ts[1:])
+        got = torch.autograd.grad(out, ts, _t(inputs[5]))
+        for a, b in zip(got, vjp(g)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-3, rtol=1e-4)
