@@ -40,14 +40,32 @@ Phases (any failure exits non-zero, before the last line is printed):
              the same three steps with every ReLU and max smooth, where every
              parameter's gradient on the card is within tolerance of the
              CPU's (GRAD_ATOL); and the backward with BatchNorm on its running
-             statistics, every parameter's gradient within that tolerance.
+             statistics, every parameter's gradient within that tolerance;
+  9 fused    phase 3's models with cfg.fused_eval (BatchNorm folded, each conv
+             layer's middle one launch of the whole-layer kernel E), f32 and
+             bf16: launch counts reset just before one forward and read just
+             after (E once per conv layer, B and C never), the f32 logits
+             against the standard forward's within the fold tolerance, the
+             entry-size model on the card against the CPU, both fused; then
+             15 timed forwards per dtype after 2 warm-up, in turns with the
+             standard forward of the same dtype, and the forward's own peak
+             memory;
+ 10 layer    every E call of those forwards replayed against its plain
+             version (f32 within 1e-4, bf16 within 1e-2 of the output's
+             scale, the max-pool shortcut exact); times as in phase 4;
+ 11 flat     phase 3's f32 model with cfg.flat_geom: the flat window resolve
+             once per hoisted stage, each call bit-exact against its plain
+             version, the logits against the standard forward's at
+             MODEL_TOL, and one timing block, in turns with the standard
+             forward.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
-a torch.profiler breakdown of one eval forward per dtype to phase 3 and of
-one train step per dtype to phase 6.
+a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
+and of one train step per dtype to phase 6.
 """
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -96,6 +114,10 @@ SCATTER_BF16_RTOL = 2 ** -7
 # them smoothed), and per parameter only with every ReLU and max smooth.
 GRAD_ATOL, GRAD_RTOL, GRAD_FLOOR = 5e-3, 1e-3, 1e-2
 TRAIN_WITNESS = 2.0
+# fused_eval against the standard forward: every Linear+BN pair folded into
+# one affine transform, the tolerance tests/test_fused_eval.py holds between
+# pcf_tpu's two paths of the whole model
+FOLD_TOL = dict(atol=1e-2, rtol=1e-2)
 
 SOURCES = {
     "window_resolve": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:369"),
@@ -104,6 +126,8 @@ SOURCES = {
     "pconv_pe_conv_linear": ("pcf_torch/csrc/pconv_fused.cu",
                              "pcf_tpu/ops/pallas/pconv_kernel.py:498"),
     "window_scatter": ("pcf_torch/csrc/window_scatter.cu", "pcf_tpu/ops/window.py:400"),
+    "window_resolve_flat": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:545"),
+    "fused_layer_eval": ("pcf_torch/csrc/layer_eval.cu", "pcf_tpu/attic/eval_kernel.py:325"),
 }
 
 
@@ -156,6 +180,75 @@ class Recorder:
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
+
+
+class KwRecorder(Recorder):
+    """A Recorder whose calls keep their keyword arguments: (args, kwargs)."""
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+
+def timed_in_turns(fns: dict, warmup: int, reps: int) -> dict:
+    """Host ms of each fn() over `reps` rounds after `warmup`, the fns taking
+    turns within a round so that all see the same host load."""
+    times = {k: [] for k in fns}
+    for i in range(warmup + reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times[k].append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def forward_with(model, batch, **keys):
+    """fn() running one forward of `model` on `batch` with `keys` set in its
+    config (the model's modules share that config)."""
+    def run():
+        model.cfg.update(keys)
+        model.forward_batch(batch)
+    return run
+
+
+def turns_summary(times: dict, valid: int) -> str:
+    """Median, min and max ms and valid points/s of each entry of
+    timed_in_turns' result."""
+    return "; ".join(
+        f"{k} median {statistics.median(t):.3f} min {min(t):.3f} max {max(t):.3f} "
+        f"({valid / statistics.median(t) * 1e3:.1f} valid points/s)"
+        for k, t in times.items())
+
+
+def forward_peak(fn) -> tuple[int, int]:
+    """(peak bytes allocated during fn(), bytes allocated before it)."""
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), resident
+
+
+def layer_eval_cost(args, kw) -> tuple[int, int]:
+    """(bytes, operations) of one fused_layer_eval call: tables, indices,
+    centres and weights read once, outputs written once; the MLP,
+    guidance-modulation, contraction and projection operations."""
+    feats, geo, edges, cxyz, _, wn, pe, gd, lw, lb = args
+    M, K = edges.nei.shape
+    osz = feats.element_size()
+    weights = sum(t.numel() for pairs in (wn, pe, gd) for p in pairs for t in p)
+    b = (feats.numel() * feats.element_size() + geo.numel() * 4
+         + (edges.window_rows.numel() + edges.localT.numel()) * 4
+         + cxyz.numel() * 4 * (2 if kw["use_vi"] else 1)
+         + (weights + lw.numel() + lb.numel()) * 4
+         + M * (lw.shape[1] + kw.get("Cs", 0)) * osz)
+    CtW, O = lw.shape
+    ops = M * K * sum(2 * w.shape[0] * w.shape[1] for pairs in (wn, pe, gd) for w, _ in pairs)
+    ops += 2 * M * K * CtW + 2 * M * CtW * O + (M * K * kw["Cx"] if gd else 0)
+    return b, ops
 
 
 def profile_run(fn, label, top=12):
@@ -256,15 +349,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import pcf_torch.nn.fused as fused_mod
+    import pcf_torch.nn.fused_eval as fused_eval_mod
     import pcf_torch.ops.kernels.window_resolve as resolve_mod
     import pcf_torch.ops.window as window_mod
     import pcf_torch.parallel.mesh as mesh_mod
     from pcf_torch.entry import build, build_training, flagship_batch
+    from pcf_torch.nn.layers import PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE
     from pcf_torch.ops.kernels import build as kbuild
+    from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
+                                                  launch_tile as layer_eval_tile)
     from pcf_torch.ops.kernels.pconv_fused import (
         launch_tile, pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
         pcf_conv_linear_plain)
-    from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
+    from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
+                                                      window_resolve_plain,
+                                                      windowed_take_flat_plain)
     from pcf_torch.ops.kernels.window_scatter import window_scatter, window_scatter_plain
     from pcf_torch.ops.window import WindowedEdges
     from pcf_torch.train.loss import cross_entropy_loss
@@ -331,25 +430,14 @@ def main() -> int:
         del logits
 
     # the dtypes take turns, so both see the same host load over the run
-    times = {d: [] for d in models}
     with torch.no_grad():
-        for i in range(FWD_WARMUP + FWD_REPS):
-            for dtype_name, model in models.items():
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                model.forward_batch(batch)
-                torch.cuda.synchronize()
-                if i >= FWD_WARMUP:
-                    times[dtype_name].append((time.perf_counter() - t) * 1e3)
+        times = timed_in_turns({d: functools.partial(m.forward_batch, batch)
+                                for d, m in models.items()}, FWD_WARMUP, FWD_REPS)
     for dtype_name, model in models.items():
         # both models and the calls kept for phase 4 stay resident: the
         # forward's own memory is the peak above what was allocated before it
         with torch.no_grad():
-            resident = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            model.forward_batch(batch)
-            torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+            peak, resident = forward_peak(lambda: model.forward_batch(batch))
         if "--profile" in sys.argv:
             with torch.no_grad():
                 profile_run(lambda: model.forward_batch(batch), f"{dtype_name} eval forward")
@@ -360,7 +448,7 @@ def main() -> int:
             f"with the other dtype); {valid / med * 1e3:.1f} valid points/s; "
             f"peak memory {peak / 2**20:.1f} MiB, of which the forward "
             f"{(peak - resident) / 2**20:.1f} MiB")
-    del models, model
+    del model  # `models` stays for phases 9-11
 
     # ---- 4 kernels ------------------------------------------------------
     def bytes_ops(kname, args):
@@ -641,10 +729,193 @@ def main() -> int:
     assert over == 0, f"gradient {worst_key} differs: {worst:.3f} of its tolerance"
     del steps, smooth, gpu_model, cpu_model, grads
 
+    # ---- 9 fused: the folded-BN forward, kernel E --------------------------
+    conv_layers = (PointConv, PointConvStridePE, PCFLayer, PointConvTransposePE)
+    eval_kernels = dict(kernels, window_resolve_flat=window_resolve_flat,
+                        fused_layer_eval=fused_layer_eval)
+    fused_runs = {}
+    for dtype_name, model in models.items():
+        n_conv = sum(isinstance(m, conv_layers) for m in model.modules())
+        with torch.no_grad():
+            model.cfg.fused_eval = False
+            standard = model.forward_batch(batch)
+            model.cfg.fused_eval = True
+            rec = KwRecorder(fused_eval_mod, "fused_layer_eval")
+            torch.cuda.synchronize()
+            for fn in eval_kernels.values():
+                fn.launches = 0
+            logits = model.forward_batch(batch)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in eval_kernels.items()}
+            rec.restore()
+        assert logits.shape == standard.shape, logits.shape
+        assert torch.isfinite(logits[batch.masks[0]]).all(), "non-finite fused logits"
+        assert launches["fused_layer_eval"] == n_conv, (
+            f"fused_layer_eval launched {launches['fused_layer_eval']} times for "
+            f"{n_conv} conv layers: the gate missed a layer")
+        assert launches["pcf_conv_linear"] == launches["pconv_pe_conv_linear"] == 0, launches
+        m0 = batch.masks[0]
+        diff = (logits[m0].float() - standard[m0].float()).abs().max().item()
+        log(f"[fused] {dtype_name}: launches per fused eval forward {launches} "
+            f"({n_conv} conv layers); logits against the standard forward: max abs err "
+            f"{diff:.3e} (scale {standard[m0].float().abs().max().item():.3e})")
+        if dtype_name == "float32":
+            assert torch.allclose(logits[m0], standard[m0], **FOLD_TOL), (
+                f"fused_eval logits differ from the standard forward: {diff:.3e}")
+        fused_runs[dtype_name] = dict(launches=launches, calls=rec.calls)
+        del logits, standard
+
+    cfg_f = cfg_s.copy()
+    cfg_f.fused_eval = True
+    gpu_model = build(cfg_f, device="cuda", seed=1)
+    with torch.no_grad():
+        gpu_model.train()
+        gpu_model.forward_batch(batch_s)
+        gpu_model.eval()
+        n = fused_layer_eval.launches
+        got = gpu_model.forward_batch(batch_s).cpu()
+        assert fused_layer_eval.launches > n, "the entry-size model did not launch E"
+        cpu_model = build(cfg_f, device="cpu", seed=1)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
+        want = cpu_model.forward_batch(batch_s.to("cpu"))
+    m = batch_s.masks[0].cpu()
+    err = (got[m] - want[m]).abs().max().item()
+    log(f"[fused] entry size, f32, fused_eval on the card vs the CPU plain version: max "
+        f"abs err {err:.3e} (logit scale {want[m].abs().max().item():.3e})")
+    assert torch.allclose(got[m], want[m], **MODEL_TOL), f"fused model logits differ: {err:.3e}"
+    del gpu_model, cpu_model
+
+    for dtype_name, model in models.items():
+        with torch.no_grad():
+            ts = timed_in_turns({"fused": forward_with(model, batch, fused_eval=True),
+                                 "standard": forward_with(model, batch, fused_eval=False)},
+                                FWD_WARMUP, FWD_REPS)
+            model.cfg.fused_eval = True
+            peak, resident = forward_peak(lambda: model.forward_batch(batch))
+            if "--profile" in sys.argv:
+                profile_run(lambda: model.forward_batch(batch),
+                            f"{dtype_name} fused_eval forward")
+            model.cfg.fused_eval = False
+        log(f"[fused] {dtype_name}: forward ms, {FWD_REPS} reps after {FWD_WARMUP} warm-up "
+            f"in turns: {turns_summary(ts, valid)}; fused forward peak memory "
+            f"{(peak - resident) / 2**20:.1f} MiB above resident")
+
+    # ---- 10 layer: kernel E against its plain version ---------------------
+    for dtype_name, run in fused_runs.items():
+        dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
+        calls = run["calls"]
+        seen = set()
+        for args, kw in calls:
+            key = (tuple(args[0].shape), tuple(args[2].nei.shape), args[8].shape,
+                   kw.get("strided", False))
+            if key not in seen:
+                seen.add(key)
+                mt, smem = layer_eval_tile(*args, **kw)
+                log(f"[layer] {dtype_name} table {key[0]} edges {key[1]} linear "
+                    f"{tuple(key[2])} strided={key[3]}: {mt} points per block, "
+                    f"{smem / 1024:.1f} KiB dynamic shared memory")
+        err = 0.0
+        with torch.no_grad():
+            for args, kw in calls:
+                (got, got_s), (want, want_s) = (fused_layer_eval(*args, **kw),
+                                                fused_layer_eval_plain(*args, **kw))
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs().max().item()
+                err = max(err, diff)
+                scale = want.float().abs().max().item()
+                tol = (F32_TOL if dt == torch.float32 else
+                       dict(atol=BF16_REL * scale, rtol=BF16_REL))
+                assert torch.allclose(got.float(), want.float(), **tol), (
+                    f"fused_layer_eval {dtype_name}: max err {diff:.3e} (scale {scale:.3e})")
+                if want_s is not None:
+                    assert torch.equal(got_s, want_s), "fused_layer_eval shortcut differs"
+            ms = cuda_ms(lambda: [fused_layer_eval(*a, **k) for a, k in calls])
+            plain_ms = cuda_ms(lambda: [fused_layer_eval_plain(*a, **k) for a, k in calls],
+                               reps=3)
+        tot_b = tot_o = 0
+        for args, kw in calls:
+            b, o = layer_eval_cost(args, kw)
+            tot_b, tot_o = tot_b + b, tot_o + o
+        t_bytes, t_ops = tot_b / PEAK_BYTES * 1e3, tot_o / PEAK_OPS[dt] * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        results[("fused_layer_eval", dtype_name)] = dict(
+            name="fused_layer_eval", route="cuda", source=SOURCES["fused_layer_eval"][0],
+            replaces=SOURCES["fused_layer_eval"][1],
+            launches=run["launches"]["fused_layer_eval"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            dtype=dtype_name)
+        log(f"[layer] fused_layer_eval {dtype_name}: {len(calls)} calls per forward, max abs "
+            f"err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library none, "
+            f"bound {b_ms:.4f} ms by {b_by} ({tot_b / 1e6:.1f} MB, {tot_o / 1e9:.2f} GOP)")
+    del fused_runs, run, calls
+
+    # ---- 11 flat: flat stage geometry, f32 --------------------------------
+    model = models["float32"]
+    L = cfg.num_level
+    back = cfg.get("resblocks_back", [0] * L)
+    n_stages = (int(cfg.use_level_1) + sum(cfg.resblocks[i] > 0 for i in range(1, L))
+                + sum(cfg.resblocks[i] != 0 and back[i] > 0 for i in range(L - 1)))
+    with torch.no_grad():
+        model.cfg.update(fused_eval=False, flat_geom=False)
+        standard = model.forward_batch(batch)
+        model.cfg.flat_geom = True
+        rec = Recorder(window_mod, "window_resolve_flat")
+        torch.cuda.synchronize()
+        for fn in eval_kernels.values():
+            fn.launches = 0
+        logits = model.forward_batch(batch)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in eval_kernels.items()}
+        rec.restore()
+        m0 = batch.masks[0]
+        diff = (logits[m0] - standard[m0]).abs().max().item()
+        log(f"[flat] float32: launches per flat_geom forward {launches} ({n_stages} hoisted "
+            f"stages); logits against the standard forward: max abs err {diff:.3e}")
+        assert launches["window_resolve_flat"] == n_stages, launches
+        assert torch.allclose(logits[m0], standard[m0], **MODEL_TOL), (
+            f"flat_geom logits differ from the standard forward: {diff:.3e}")
+        for args in rec.calls:
+            assert torch.equal(window_resolve_flat(*args), windowed_take_flat_plain(*args)), (
+                "window_resolve_flat is not bit-exact")
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: [window_resolve_flat(*a) for a in rec.calls])
+        plain_ms = cuda_ms(lambda: [windowed_take_flat_plain(*a) for a in rec.calls], reps=3)
+        neis = [torch.gather(wr, 1, lt[:, 0].long()).reshape(-1) for _, wr, lt, _ in rec.calls]
+        lib_ms = cuda_ms(lambda: [torch.index_select(a[0], 0, n)
+                                  for a, n in zip(rec.calls, neis)])
+        tot_b = sum(t.numel() * 4 + (wr.numel() + lt.numel()) * 4 + lt.numel() * t.shape[1] * 4
+                    for t, wr, lt, _ in rec.calls)
+        b_ms = tot_b / PEAK_BYTES * 1e3
+        results[("window_resolve_flat", "float32")] = dict(
+            name="window_resolve_flat", route="cuda",
+            source=SOURCES["window_resolve_flat"][0],
+            replaces=SOURCES["window_resolve_flat"][1],
+            launches=launches["window_resolve_flat"], max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
+            dtype="float32")
+        log(f"[flat] window_resolve_flat float32: {len(rec.calls)} calls per forward, "
+            f"bit-exact, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_select "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms by bytes ({tot_b / 1e6:.2f} MB)")
+
+        ts = timed_in_turns({"flat_geom": forward_with(model, batch, flat_geom=True),
+                             "standard": forward_with(model, batch, flat_geom=False)},
+                            FWD_WARMUP, FWD_REPS)
+        model.cfg.flat_geom = True
+        peak, resident = forward_peak(lambda: model.forward_batch(batch))
+        model.cfg.flat_geom = False
+    log(f"[flat] float32: forward ms, {FWD_REPS} reps after {FWD_WARMUP} warm-up in turns: "
+        f"{turns_summary(ts, valid)}; flat_geom forward peak memory "
+        f"{(peak - resident) / 2**20:.1f} MiB above resident")
+    del models, model, logits, standard, rec
+
     log(f"[done] {time.time() - t_start:.1f} s")
-    log("[kernels float32] " + json.dumps([results[(k, "float32")] for k in all_kernels]))
+    # the flat resolve reads geometry, f32 in either dtype: its float32 row
+    # stands in both lines
+    order = list(all_kernels) + ["window_resolve_flat", "fused_layer_eval"]
+    dtypes = {"window_resolve_flat": "float32"}
+    log("[kernels float32] " + json.dumps([results[(k, "float32")] for k in order]))
     log(smi)
-    print(json.dumps({"kernels": [results[(k, "bfloat16")] for k in all_kernels]}))
+    print(json.dumps({"kernels": [results[(k, dtypes.get(k, "bfloat16"))] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

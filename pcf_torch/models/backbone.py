@@ -6,7 +6,10 @@ pyramid without a batch dim:
   edges_forward[l] [N(l+1), K], norms[l] [Nl, 3], masks[l] [Nl] bool.
 
 The localized offsets and VI features of a level are computed once per stage
-and shared by its residual blocks, as in pcf_tpu/models/backbone.py.
+and shared by its residual blocks, as in pcf_tpu/models/backbone.py: with
+cfg.flat_geom in k-major flat layout through the flat window resolve, and
+not at all where every block of the stage takes the whole-layer inference
+kernel (cfg.fused_eval), which computes its own.
 """
 
 from __future__ import annotations
@@ -15,20 +18,47 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pcf_torch.nn.fused_eval import fused_eval_ok
 from pcf_torch.nn.layers import (PCFLayer, PointConv, PointConvStridePE,
                                  check_ported, dtype_of)
 from pcf_torch.nn.norm import LinearBN
 from pcf_torch.nn.resstack import ResBlockStack
 from pcf_torch.ops.gather import index_points, index_points_multi
-from pcf_torch.ops.vi_transform import VI_coordinate_transform
+from pcf_torch.ops.vi_transform import (VI_coordinate_transform, localize_flat,
+                                        split_geom_flat, vi_transform_flat)
+from pcf_torch.ops.window import WindowedEdges, windowed_take_flat
+
+
+def _skip_stage_geometry(cfg, nei_inds, training, block_cls) -> bool:
+    """True when every block of the stage takes the whole-layer inference
+    kernel, which computes VI from the geometry itself: the stage tensors
+    would go unused."""
+    if not fused_eval_ok(cfg, nei_inds, training):
+        return False
+    if block_cls is PCFLayer:
+        return cfg.attention_type == "subtraction" and not cfg.layer_norm_guidance
+    return True
 
 
 def _stage_geometry(xyz, nei_inds, norms, use_vi, cfg=None):
     """Per-stage geometry shared by every same-level residual block: the
     localized neighbour offsets and (with USE_VI) the VI features, from one
     combined gather, cast to the compute dtype (the geometry arithmetic
-    itself stays f32)."""
+    itself stays f32). With cfg.flat_geom and windowed edges both are k-major
+    flat, [M, K*3] and [M, K*12], from the flat resolve, and carry no
+    gradient (pcf_tpu stops it there too)."""
     dtype = None if cfg is None else dtype_of(cfg)
+    if cfg is not None and cfg.get("flat_geom") and isinstance(nei_inds, WindowedEdges):
+        if use_vi:
+            gx, gn = split_geom_flat(windowed_take_flat(torch.cat([xyz, norms], -1),
+                                                        nei_inds))
+            localized = localize_flat(gx, xyz)
+            vi = vi_transform_flat(localized, gn, norms)
+            if dtype is not None:
+                localized, vi = localized.to(dtype), vi.to(dtype)
+            return localized, vi
+        localized = localize_flat(windowed_take_flat(xyz, nei_inds), xyz)
+        return (localized if dtype is None else localized.to(dtype)), None
     if use_vi:
         gx, gn = index_points_multi([xyz, norms], nei_inds)
         localized = gx - xyz[:, None, :]
@@ -79,8 +109,8 @@ class PCF_Backbone(nn.Module):
         feat = (torch.cat([features, pointclouds[0]], dim=-1)
                 if cfg.USE_XYZ else features)
         if cfg.use_level_1:
-            localized0, vi_features = _stage_geometry(
-                pointclouds[0], edges_self[0], norms[0], use_vi=cfg.USE_VI, cfg=cfg)
+            localized0, vi_features = self._geometry(pointclouds[0], edges_self[0],
+                                                     norms[0], PointConvStridePE)
             feat, _ = self.selfpointconv(
                 pointclouds[0], feat, edges_self[0], norms[0], None, None,
                 vi_features, localized0, masks[0], None)
@@ -98,10 +128,18 @@ class PCF_Backbone(nn.Module):
                 norms[i - 1], pointclouds[i], norms[i], None, None,
                 masks[i - 1], masks[i])
             if cfg.resblocks[i] > 0:
-                localized, vi_features = _stage_geometry(
-                    pointclouds[i], edges_self[i], norms[i], use_vi=cfg.USE_VI, cfg=cfg)
+                block_cls = PointConvStridePE if i <= cfg.guided_level else PCFLayer
+                localized, vi_features = self._geometry(pointclouds[i], edges_self[i],
+                                                        norms[i], block_cls)
                 feat = getattr(self, f"pointconv_res_{i - 1}")(
                     pointclouds[i], feat, edges_self[i], norms[i],
                     vi_features=vi_features, localized_xyz=localized, mask=masks[i])
             feat_list.append(feat)
         return feat_list
+
+    def _geometry(self, xyz, nei_inds, norms, block_cls):
+        """The stage geometry of a level's blocks, or (None, None) where they
+        all take the whole-layer inference kernel."""
+        if _skip_stage_geometry(self.cfg, nei_inds, self.training, block_cls):
+            return None, None
+        return _stage_geometry(xyz, nei_inds, norms, use_vi=self.cfg.USE_VI, cfg=self.cfg)

@@ -11,7 +11,7 @@ from __future__ import annotations
 from torch import nn
 from torch.nn import functional as F
 
-from pcf_torch.models.backbone import PCF_Backbone, _stage_geometry
+from pcf_torch.models.backbone import PCF_Backbone, _skip_stage_geometry, _stage_geometry
 from pcf_torch.nn.init import Dense
 from pcf_torch.nn.layers import (PointConvStridePE, PointConvTransposePE, dropout,
                                  dtype_of)
@@ -56,8 +56,11 @@ class PointConvFormer_Segmentation(nn.Module):
                 pointclouds[i + 1], feat, edges_propagate[i], norms[i + 1],
                 pointclouds[i], norms[i], feat_list[i], None, masks[i], masks[i + 1])
             if cfg.resblocks[i] != 0 and self.resblocks_back[i] > 0:
-                localized, vi_features = _stage_geometry(
-                    pointclouds[i], edges_self[i], norms[i], use_vi=cfg.USE_VI, cfg=cfg)
+                localized, vi_features = None, None
+                if not _skip_stage_geometry(cfg, edges_self[i], self.training,
+                                            PointConvStridePE):
+                    localized, vi_features = _stage_geometry(
+                        pointclouds[i], edges_self[i], norms[i], use_vi=cfg.USE_VI, cfg=cfg)
                 for j in range(self.resblocks_back[i]):
                     feat, _ = getattr(self, f"pointdeconv_res_{idx}_{j}")(
                         pointclouds[i], feat, edges_self[i], norms[i], None, None,

@@ -13,7 +13,13 @@ same sub-module names:
 
 With cfg.USE_PALLAS_KERNEL (nn/fused.fused_wins), a layer's gather +
 guidance/PE + contraction + linear runs in one fused kernel
-(FusedConvLinear); otherwise it runs the unfused ops and a LinearBN.
+(FusedConvLinear); otherwise it runs the unfused ops and a LinearBN. With
+cfg.fused_eval, an eval-mode layer on windowed edges runs its whole middle
+as one launch of the whole-layer inference kernel (nn/fused_eval.py). With
+cfg.flat_geom the hoisted stage geometry arrives k-major flat [M, K*c]
+(models/backbone._stage_geometry); the WeightNet, PE and mlp_conv chain
+takes it flat, and it is unfolded to [M, K, c] where it meets the features
+(_flat_k, _unfold).
 Training mode is the module's `training` flag. Dropout and DropPath draw
 from an explicit torch.Generator that the train step hands every module with
 `set_generator` (pcf_tpu folds a fresh key per step), never from the global
@@ -29,6 +35,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from pcf_torch.nn.fused import FusedConvLinear, fused_wins
+from pcf_torch.nn.fused_eval import (fused_eval_ok, try_pcf_fused_eval,
+                                     try_pointconv_fused_eval, try_stride_pe_fused_eval,
+                                     try_transpose_fused_eval)
 from pcf_torch.nn.guidance import MultiHeadGuidance
 from pcf_torch.nn.norm import LinearBN, UnaryBlock
 from pcf_torch.nn.weightnet import WeightNet
@@ -36,8 +45,7 @@ from pcf_torch.ops.gather import index_points, index_points_multi
 from pcf_torch.ops.pconv import guided_contraction, pconv
 from pcf_torch.ops.vi_transform import VI_coordinate_transform
 
-_NOT_PORTED = ("fused_eval", "flat_geom", "cm_geom", "spatial_axis", "remat_layers",
-               "remat_deconv")
+_NOT_PORTED = ("cm_geom", "spatial_axis", "remat_layers", "remat_deconv")
 
 
 def check_ported(cfg) -> None:
@@ -126,6 +134,26 @@ def _gathered_inputs(nei_inds, dense_xyz, center_xyz, feat_tensors,
     return localized_xyz, gathered_norm, got[i:]
 
 
+def _flat_k(weight_net_input, nei_inds) -> int:
+    """K when the hoisted geometry arrived k-major flat [M, K*c], else 0."""
+    if weight_net_input is not None and weight_net_input.dim() == 2:
+        return int(nei_inds.shape[1])
+    return 0
+
+
+def _unfold(x, K: int):
+    """[M, K*c] k-major flat -> [M, K, c]."""
+    return x.reshape(x.shape[0], K, x.shape[-1] // K)
+
+
+def _residual(layer, new_feat, sparse_feats, out_mask):
+    """A bottleneck layer's end: DropPath(new_feat) plus the shortcut (through
+    unary_shortcut where the width changes), then LeakyReLU(0.1)."""
+    shortcut = (layer.unary_shortcut(sparse_feats, out_mask)
+                if layer.in_channel != layer.out_channel else sparse_feats)
+    return F.leaky_relu(layer.drop_path(new_feat) + shortcut, 0.1)
+
+
 def _weightnet_input(cfg, localized_xyz, gathered_norm, center_norm, vi_features):
     """VI features (12-d) or the raw relative coordinates (3-d)."""
     if cfg.USE_VI:
@@ -170,6 +198,11 @@ class PointConv(nn.Module):
         center_xyz = sparse_xyz if sparse_xyz is not None else dense_xyz
         center_norm = sparse_xyz_norm if sparse_xyz is not None else dense_xyz_norm
         out_mask = sparse_mask if sparse_xyz is not None else dense_mask
+        if fused_eval_ok(cfg, nei_inds, self.training):
+            # the whole-layer inference kernel; dropout is the identity here
+            return try_pointconv_fused_eval(self, cfg, dense_feats, dense_xyz,
+                                            dense_xyz_norm, nei_inds, center_xyz,
+                                            center_norm, self.use_vi), None
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
             nei_inds, dense_xyz, center_xyz, [] if self.use_fused else [dense_feats],
             localized_xyz=localized_xyz, dense_xyz_norm=dense_xyz_norm,
@@ -179,7 +212,10 @@ class PointConv(nn.Module):
                    VI_coordinate_transform(localized_xyz, gathered_norm, center_norm))
         else:
             wni = localized_xyz
-        weights = self.weightnet(wni, out_mask)
+        flat_k = _flat_k(wni, nei_inds)
+        weights = self.weightnet(wni, out_mask, flat_k)
+        if flat_k:
+            weights, wni = _unfold(weights, flat_k), _unfold(wni, flat_k)
         if self.use_fused:
             new_feat = self.linear(dense_feats, nei_inds, weights,
                                    additional_features=wni if cfg.USE_PE else None,
@@ -244,6 +280,12 @@ class PointConvStridePE(nn.Module):
 
         feats_x = (self.unary1(dense_feats, dense_mask)
                    if self.in_channel != self.out_channel // 4 else dense_feats)
+        if fused_eval_ok(cfg, nei_inds, self.training):
+            new_feat, sparse_feats = try_stride_pe_fused_eval(
+                self, cfg, feats_x, dense_feats, dense_xyz, dense_xyz_norm, nei_inds,
+                center_xyz, center_norm, strided)
+            return _residual(self, self.unary2(new_feat, out_mask), sparse_feats,
+                             out_mask), None
         feat_reqs = ([] if self.use_fused else [feats_x]) + ([dense_feats] if strided else [])
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
             nei_inds, dense_xyz, center_xyz, feat_reqs,
@@ -252,8 +294,11 @@ class PointConvStridePE(nn.Module):
         wni = _weightnet_input(cfg, localized_xyz, gathered_norm, center_norm,
                                vi_features)
 
-        feat_pe = self.pe_convs(localized_xyz, out_mask)
-        weights = self.weightnet(wni, out_mask)
+        flat_k = _flat_k(wni, nei_inds)
+        feat_pe = self.pe_convs(localized_xyz, out_mask, flat_k)
+        weights = self.weightnet(wni, out_mask, flat_k)
+        if flat_k:
+            feat_pe, weights = _unfold(feat_pe, flat_k), _unfold(weights, flat_k)
         if self.use_fused:
             new_feat = self.linear(feats_x, nei_inds, weights,
                                    additional_features=feat_pe, mask=out_mask)
@@ -265,10 +310,7 @@ class PointConvStridePE(nn.Module):
 
         # shortcut: max-pooled original features when strided
         sparse_feats = gfeats[-1].amax(dim=1) if strided else dense_feats
-        shortcut = (self.unary_shortcut(sparse_feats, out_mask)
-                    if self.in_channel != self.out_channel else sparse_feats)
-        new_feat = F.leaky_relu(self.drop_path(new_feat) + shortcut, 0.1)
-        return new_feat, wni
+        return _residual(self, new_feat, sparse_feats, out_mask), wni
 
 
 class PCFLayer(nn.Module):
@@ -330,6 +372,14 @@ class PCFLayer(nn.Module):
         feats_x = (self.unary1(dense_feats, dense_mask)
                    if self.in_channel != self.out_channel // 4 else dense_feats)
         guidance_x = self.guidance_unary(feats_x, dense_mask)
+        if fused_eval_ok(cfg, nei_inds, self.training):
+            res = try_pcf_fused_eval(self, cfg, feats_x, guidance_x, dense_feats, dense_xyz,
+                                     dense_xyz_norm, nei_inds, center_xyz, center_norm,
+                                     strided)
+            if res is not None:
+                new_feat, sparse_feats = res
+                return _residual(self, self.unary2(new_feat, out_mask), sparse_feats,
+                                 out_mask), None
         feat_reqs = [guidance_x] + ([] if self.use_fused else [feats_x]) + (
             [dense_feats] if strided else [])
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
@@ -340,7 +390,10 @@ class PCFLayer(nn.Module):
                                vi_features)
 
         # lift the VI coordinates to the guidance feature length
-        feat_pe = F.relu(self.mlp_conv(wni, out_mask))
+        flat_k = _flat_k(wni, nei_inds)
+        feat_pe = F.relu(self.mlp_conv(wni, out_mask, flat_k))
+        if flat_k:  # the guidance concat below joins the 3-D feature path
+            feat_pe = _unfold(feat_pe, flat_k)
         guidance_feature = torch.cat([gfeats[0], feat_pe], dim=-1)
         if not strided:  # key = the centre itself
             guidance_key = guidance_feature[:, :1, :].expand_as(guidance_feature)
@@ -348,7 +401,9 @@ class PCFLayer(nn.Module):
             guidance_key = guidance_feature.amax(dim=1, keepdim=True).expand_as(
                 guidance_feature)
         guidance_score = self.guidance_weight(guidance_feature, guidance_key, out_mask)
-        weights = self.weightnet(wni, out_mask)
+        weights = self.weightnet(wni, out_mask, flat_k)
+        if flat_k:
+            weights = _unfold(weights, flat_k)
 
         if self.use_fused:
             new_feat = self.linear(feats_x, nei_inds, weights,
@@ -361,10 +416,7 @@ class PCFLayer(nn.Module):
         new_feat = self.unary2(new_feat, out_mask)
 
         sparse_feats = gfeats[-1].amax(dim=1) if strided else dense_feats
-        shortcut = (self.unary_shortcut(sparse_feats, out_mask)
-                    if self.in_channel != self.out_channel else sparse_feats)
-        new_feat = F.leaky_relu(self.drop_path(new_feat) + shortcut, 0.1)
-        return new_feat, wni
+        return _residual(self, new_feat, sparse_feats, out_mask), wni
 
 
 class PointConvTransposePE(nn.Module):
@@ -410,14 +462,29 @@ class PointConvTransposePE(nn.Module):
             if dense_feats is not None:
                 dense_feats = dense_feats.to(dtype)
         out_mask = dense_mask
+        if fused_eval_ok(cfg, nei_inds, self.training):
+            new_feat = try_transpose_fused_eval(self, cfg, sparse_feats, sparse_xyz,
+                                                sparse_xyz_norm, nei_inds, dense_xyz,
+                                                dense_xyz_norm)
+            return self._head(new_feat, dense_feats, out_mask), None
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
             nei_inds, sparse_xyz, dense_xyz, [] if self.use_fused else [sparse_feats],
             dense_xyz_norm=sparse_xyz_norm,
             need_norm=cfg.USE_VI and vi_features is None)
         wni = _weightnet_input(cfg, localized_xyz, gathered_norm, dense_xyz_norm,
                                vi_features)
-        feat_pe = self.pe_convs(localized_xyz, out_mask) if cfg.USE_PE else None
-        weights = self.weightnet(wni, out_mask)
+        # decoder edges are never hoisted, so the flat forms do not arrive
+        # here from the model; the layer takes them as the others do
+        feat_pe = None
+        if cfg.USE_PE:
+            pe_k = _flat_k(localized_xyz, nei_inds)
+            feat_pe = self.pe_convs(localized_xyz, out_mask, pe_k)
+            if pe_k:
+                feat_pe = _unfold(feat_pe, pe_k)
+        flat_k = _flat_k(wni, nei_inds)
+        weights = self.weightnet(wni, out_mask, flat_k)
+        if flat_k:
+            weights = _unfold(weights, flat_k)
         if self.use_fused:
             new_feat = self.linear(sparse_feats, nei_inds, weights,
                                    additional_features=feat_pe, mask=out_mask)
@@ -426,10 +493,13 @@ class PointConvTransposePE(nn.Module):
             if feat_pe is not None:
                 gathered = torch.cat([gathered, feat_pe], dim=-1)
             new_feat = self.linear(pconv(gathered, weights, _highest(cfg)), out_mask)
-        new_feat = F.relu(new_feat)
-        if dense_feats is not None:  # encoder skip
+        return self._head(F.relu(new_feat), dense_feats, out_mask), wni
+
+    def _head(self, new_feat, dense_feats, out_mask):
+        """The encoder skip, dropout and mlp2 after the upsampling conv."""
+        if dense_feats is not None:
             new_feat = new_feat + dense_feats
-        new_feat = dropout(new_feat, cfg.dropout_rate, self.training, self.generator)
+        new_feat = dropout(new_feat, self.cfg.dropout_rate, self.training, self.generator)
         for i in range(self.n_mlp2):
             new_feat = F.relu(getattr(self, f"mlp2_convs_{i}")(new_feat, out_mask))
-        return new_feat, wni
+        return new_feat

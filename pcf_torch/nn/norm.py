@@ -14,6 +14,12 @@ The output keeps the input's dtype. Training mode is the module's
 `training` flag; inside `frozen_running_stats()` training leaves the running
 statistics as they are (the recompute of a rematerialised block,
 nn/resstack.py).
+
+With `flat_k` = K (pcf_tpu's flat-lane mode, cfg.flat_geom) the input is
+k-major flat [M, K*c]: statistics stay per channel, pooled over K, and the
+parameters are those of the 3-D form. pcf_tpu applies a block-diagonal
+kron(I_K, W) to the lanes; here the same arithmetic runs on the [M, K, c]
+view.
 """
 
 from __future__ import annotations
@@ -54,7 +60,10 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                flat_k: int = 0) -> torch.Tensor:
+        if flat_k:
+            return self(x.reshape(*x.shape[:-1], flat_k, self.features), mask).reshape(x.shape)
         acc = torch.promote_types(x.dtype, torch.float32)
         if not self.training:
             mean, var = self.running_mean, self.running_var
@@ -90,7 +99,10 @@ class LinearBN(nn.Module):
         self.bn = (MaskedBatchNorm(out_dim, momentum=bn_momentum,
                                    weight_init=bn_weight_init) if use_bn else None)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, flat_k: int = 0):
+        if flat_k:
+            y = self(x.reshape(*x.shape[:-1], flat_k, -1), mask)
+            return y.reshape(*x.shape[:-1], -1)
         x = self.c(x)
         return x if self.bn is None else self.bn(x, mask)
 

@@ -1,6 +1,8 @@
 """WeightNet: the MLP that turns per-neighbour (VI-)relative coordinates
 [M, K, in_ch] into per-neighbour convolution weights [M, K, out_channel].
-LinearBN + ReLU after every layer, the last one included.
+LinearBN + ReLU after every layer, the last one included. With `flat_k` = K
+the input and output are k-major flat, [M, K*in_ch] -> [M, K*out_channel]
+(nn/norm.py).
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ class _WeightNetCore(nn.Module):
                 in_channel, d, use_bn=use_bn, bn_momentum=bn_momentum, dtype=dtype))
             in_channel = d
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, flat_k: int = 0):
         for i in range(self.n):
-            x = F.relu(getattr(self, f"mlp_convs_{i}")(x, mask))
+            x = F.relu(getattr(self, f"mlp_convs_{i}")(x, mask, flat_k))
         return x
 
 
@@ -45,5 +47,5 @@ class WeightNet(nn.Module):
         self.core = _WeightNetCore(in_channel, list(hidden_unit or ()) + [out_channel],
                                    use_bn, bn_momentum, dtype)
 
-    def forward(self, localized_xyz, mask=None):
-        return self.core(localized_xyz, mask)
+    def forward(self, localized_xyz, mask=None, flat_k: int = 0):
+        return self.core(localized_xyz, mask, flat_k)

@@ -1,0 +1,274 @@
+"""Kernel E, the whole-layer inference kernel: one conv layer's middle in one
+launch.
+
+Replaces pcf_tpu/attic/eval_kernel.py::fused_layer_eval (its pallas_call)
+and computes what that kernel computes, per output point m and neighbour k
+(row = window_rows[t, localT[t, 0, e]], both indices clamped):
+
+  geometry   loc = xyz[row] - centre[m]; VI (12-d) with USE_VI, else loc
+  WeightNet  v = MLP(VI)                          folded Linear+BN, ReLU after each
+  PE         pe = MLP(VI) (pe_on_vi), MLP(loc) (pe_convs), or VI (concat_wni)
+  guidance   q = [guid[row] | pe]; key = q at k = 0, or max over K if strided;
+             s = sigmoid(MLP(q - key)) [H]; x[c] = feats[row, c] * s[c % H]
+  otherwise  x = [feats[row, :Cx] | pe]
+  contract   S[m, c*W + w] = sum_k x[m, k, c] * v[m, k, w]
+  project    out[m] = ReLU(S[m] @ L + b)         L [Ct*W, O], c-major rows
+  shortcut   short[m] = max_k feats[row, Cx+Cg:]  when strided
+
+Both outputs take the feature table's dtype.
+
+Every BatchNorm is folded into its Linear before the call
+(nn/fused_eval.py), so the kernel sees plain (w [ci, co], b [co]) pairs.
+The feature table is [N, Cx+Cg+Cs] in the order conv | guidance | shortcut
+and the geometry table [N, 3] or [N, 6] (xyz | normals) f32, as pcf_tpu's.
+The CUDA source, csrc/layer_eval.cu, says what bounds it and how a block
+keeps every per-edge intermediate out of device memory.
+
+Rounding (both versions), after pcf_tpu's kernel: with an f32 feature table
+every product and sum is f32. With a bf16 table the MLP multiplicands are
+bf16 with f32 sums and f32 biases, and every MLP output is rounded to bf16;
+the VI features are f32 until an MLP reads them; the gathered features times
+the guidance scores are rounded to bf16; each contraction product is rounded
+to bf16 before the f32 sum over K, and the sum to bf16; the projection
+multiplies bf16 by bf16 into f32. pcf_tpu's bf16 mode reads the geometry
+through a hi/lo bf16 pair (about 2^-16 relative); both versions here read the
+f32 geometry itself.
+
+`fused_layer_eval` launches kernel E for CUDA tensors, or raises; it takes
+`fused_layer_eval_plain` only for CPU tensors. Neither has a backward:
+inference only, as pcf_tpu's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pcf_torch.ops.kernels import build
+from pcf_torch.ops.kernels.window_resolve import window_resolve_plain
+from pcf_torch.ops.vi_transform import VI_coordinate_transform
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_LAYERS = 4  # MLP layers per branch in the kernel's descriptor
+_MAX_W = 16      # the kernel's register tile of W partial sums
+
+
+def _widths(wn, pe, gd, linear_w, *, Cx, use_vi, concat_wni):
+    """(W, Cpe, Ct) of a call, from the folded weights' shapes."""
+    W = wn[-1][0].shape[-1]
+    Cpe = (12 if use_vi else 3) if concat_wni else (pe[-1][0].shape[-1] if pe else 0)
+    Ct = Cx if gd else Cx + Cpe
+    if linear_w.shape[0] != Ct * W:
+        raise ValueError(f"fused_layer_eval: linear_w {tuple(linear_w.shape)} is not "
+                         f"[Ct*W, O] with Ct={Ct}, W={W}")
+    return W, Cpe, Ct
+
+
+def _mlp_plain(x, pairs, final, mm, acc):
+    """Folded MLP with mm multiplicands and acc sums; ReLU between layers,
+    `final` ("relu" or "sigmoid") after the last."""
+    for i, (w, b) in enumerate(pairs):
+        x = x.to(mm).to(acc) @ w.to(mm).to(acc) + b.to(acc)
+        x = torch.sigmoid(x) if i == len(pairs) - 1 and final == "sigmoid" else x.relu()
+    return x
+
+
+def fused_layer_eval_plain(feat_table, geo_table, edges, center_xyz, center_norm,
+                           wn, pe, gd, linear_w, linear_b, *, Cx: int, Cg: int = 0,
+                           Cs: int = 0, use_vi: bool, pe_on_vi: bool = True,
+                           concat_wni: bool = False, strided: bool = False,
+                           num_heads: int = 0):
+    """Plain PyTorch version of kernel E. Returns (out [M, O], shortcut
+    [M, Cs] or None)."""
+    M, K = edges.nei.shape
+    W, Cpe, Ct = _widths(wn, pe, gd, linear_w, Cx=Cx, use_vi=use_vi, concat_wni=concat_wni)
+    acc = torch.promote_types(feat_table.dtype, torch.float32)
+    mm = torch.bfloat16 if feat_table.dtype == torch.bfloat16 else acc
+
+    feats = window_resolve_plain(feat_table, edges.window_rows,
+                                 edges.localT).reshape(M, K, -1)
+    geo = window_resolve_plain(geo_table.to(acc), edges.window_rows,
+                               edges.localT).reshape(M, K, -1)
+    loc = geo[..., :3] - center_xyz.to(acc)[:, None, :]
+    wni = (VI_coordinate_transform(loc, geo[..., 3:6], center_norm.to(acc))
+           if use_vi else loc)
+    wgt = _mlp_plain(wni, wn, "relu", mm, acc).to(mm)
+    pe_v = None
+    if pe:
+        pe_in = wni if pe_on_vi else wni[..., 9:12] if use_vi else wni
+        pe_v = _mlp_plain(pe_in, pe, "relu", mm, acc).to(mm)
+    elif concat_wni:
+        pe_v = wni.to(mm)
+
+    gath = feats[..., :Cx].to(mm)
+    if gd:
+        q = torch.cat([feats[..., Cx:Cx + Cg].to(mm), pe_v], dim=-1)
+        key = q.amax(dim=1, keepdim=True) if strided else q[:, :1]
+        sc = _mlp_plain(q - key, gd, "sigmoid", mm, acc).to(mm)
+        gath = gath * sc.repeat(1, 1, Cx // num_heads)  # channel c takes head c % H
+    if Ct > Cx:
+        gath = torch.cat([gath, pe_v], dim=-1)
+    # each product in mm, summed over K in acc, one W column at a time
+    pc = torch.stack([(gath * wgt[..., w:w + 1]).to(acc).sum(dim=1).to(mm)
+                      for w in range(W)], dim=-1).reshape(M, Ct * W)
+    out = (pc.to(acc) @ linear_w.to(mm).to(acc) + linear_b.to(acc)).relu()
+    short = feats[..., Cx + Cg:Cx + Cg + Cs].amax(dim=1) if strided else None
+    return out.to(feat_table.dtype), short
+
+
+class _Mlp(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("din", ctypes.c_int * _MAX_LAYERS),
+                ("dout", ctypes.c_int * _MAX_LAYERS), ("w", ctypes.c_int * _MAX_LAYERS),
+                ("b", ctypes.c_int * _MAX_LAYERS)]
+
+
+class _Args(ctypes.Structure):
+    """csrc/layer_eval.cu's LayerEvalArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "feats", "geo", "window_rows", "localT", "cxyz", "cnorm", "params", "out",
+        "shortcut")] + [(n, ctypes.c_int) for n in (
+            "n_rows", "Cf", "Gd", "wsz", "mtk", "M", "K", "Cx", "Cg", "Cs", "W", "O",
+            "H", "Cpe", "Ct", "lin", "use_vi", "pe_on_vi", "concat_wni", "strided",
+            "bf16", "hmax", "mt")] + [("wn", _Mlp), ("pe", _Mlp), ("gd", _Mlp)]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("layer_eval")
+    lib.layer_eval.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.layer_eval.restype = ctypes.c_int
+    lib.layer_eval_tile.argtypes = [ctypes.POINTER(_Args),
+                                    ctypes.POINTER(ctypes.c_longlong)]
+    lib.layer_eval_tile.restype = ctypes.c_int
+    return lib
+
+
+def _pack(wn, pe, gd, linear_w, linear_b):
+    """Every folded weight in one f32 buffer (MLP pairs first, w row-major
+    then b; the linear last) and the three MLP descriptors."""
+    parts, off, mlps = [], 0, []
+    for pairs in (wn, pe, gd):
+        if len(pairs) > _MAX_LAYERS:
+            raise ValueError(f"fused_layer_eval: {len(pairs)} MLP layers, the kernel "
+                             f"takes {_MAX_LAYERS}")
+        d = _Mlp(n=len(pairs))
+        for i, (w, b) in enumerate(pairs):
+            if w.dim() != 2 or b.shape != (w.shape[1],) or (
+                    i and w.shape[0] != pairs[i - 1][0].shape[1]):
+                raise ValueError(f"fused_layer_eval: MLP layer {i} shapes "
+                                 f"{tuple(w.shape)}, {tuple(b.shape)} do not chain")
+            d.din[i], d.dout[i] = w.shape
+            d.w[i], d.b[i] = off, off + w.numel()
+            parts += [w.reshape(-1), b]
+            off += w.numel() + b.numel()
+        mlps.append(d)
+    n_mlp = off
+    parts += [linear_w.reshape(-1), linear_b]
+    params = torch.cat([p.float() for p in parts])
+    return params, n_mlp, mlps
+
+
+def _prepare(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
+             linear_w, linear_b, *, Cx, Cg=0, Cs=0, use_vi, pe_on_vi=True,
+             concat_wni=False, strided=False, num_heads=0):
+    """Check a call's operands; return the kernel's arguments, its outputs
+    and the tensors the arguments point into."""
+    dev = feat_table.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_layer_eval takes CPU or CUDA tensors, got {dev}")
+    W, Cpe, Ct = _widths(wn, pe, gd, linear_w, Cx=Cx, use_vi=use_vi, concat_wni=concat_wni)
+    M, K = edges.nei.shape
+    T, Wsz = edges.window_rows.shape
+    MtK = edges.localT.shape[-1]
+    N, Cf = feat_table.shape
+    Gd = geo_table.shape[-1]
+    O = linear_w.shape[-1]
+    tensors = [feat_table, geo_table, edges.window_rows, edges.localT, center_xyz,
+               linear_w, linear_b] + [t for pairs in (wn, pe, gd) for p in pairs for t in p]
+    if use_vi:
+        tensors.append(center_norm)
+    if any(t.device != dev for t in tensors):
+        raise ValueError("fused_layer_eval: all inputs must be on one device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("fused_layer_eval has no backward (inference only); "
+                           "call it under torch.no_grad()")
+    if feat_table.dtype not in _DTYPES:
+        raise ValueError(f"fused_layer_eval: the feature table must be float32 or "
+                         f"bfloat16, got {feat_table.dtype}")
+    if geo_table.dtype != torch.float32 or center_xyz.dtype != torch.float32 or (
+            use_vi and center_norm.dtype != torch.float32):
+        raise ValueError("fused_layer_eval: geometry and centres must be float32")
+    if edges.window_rows.dtype != torch.int32 or edges.localT.dtype != torch.int32:
+        raise ValueError("fused_layer_eval: window_rows and localT must be int32")
+    if (Cf != Cx + Cg + Cs or Gd != (6 if use_vi else 3) or N != geo_table.shape[0]
+            or center_xyz.shape != (M, 3) or (use_vi and center_norm.shape != (M, 3))
+            or edges.localT.shape != (T, 1, MtK) or MtK % K or T * (MtK // K) != M
+            or linear_b.shape != (O,) or (Cs and not strided)):
+        raise ValueError(
+            f"fused_layer_eval: shapes do not agree: feat_table {tuple(feat_table.shape)} "
+            f"(Cx={Cx}, Cg={Cg}, Cs={Cs}), geo_table {tuple(geo_table.shape)}, centres "
+            f"{tuple(center_xyz.shape)}, window_rows {tuple(edges.window_rows.shape)}, "
+            f"localT {tuple(edges.localT.shape)}, M={M}, K={K}, linear_b "
+            f"{tuple(linear_b.shape)}")
+    if W > _MAX_W:
+        raise ValueError(f"fused_layer_eval: W={W} exceeds the kernel's {_MAX_W}")
+    if gd and (num_heads <= 0 or Cx % num_heads or gd[0][0].shape[0] != Cg + Cpe
+               or gd[-1][0].shape[1] != num_heads):
+        raise ValueError(f"fused_layer_eval: guidance of {num_heads} heads over "
+                         f"Cx={Cx}, query {Cg}+{Cpe} does not fit its MLP")
+    feat_table, geo_table = feat_table.contiguous(), geo_table.contiguous()
+    center_xyz = center_xyz.contiguous()
+    center_norm = center_norm.contiguous() if use_vi else None
+    params, n_mlp, (mwn, mpe, mgd) = _pack(wn, pe, gd, linear_w, linear_b)
+    out = torch.empty((M, O), dtype=feat_table.dtype, device=dev)
+    short = torch.empty((M, Cs), dtype=feat_table.dtype, device=dev) if strided else None
+    a = _Args(
+        feats=feat_table.data_ptr(), geo=geo_table.data_ptr(),
+        window_rows=edges.window_rows.data_ptr(), localT=edges.localT.data_ptr(),
+        cxyz=center_xyz.data_ptr(), cnorm=center_norm.data_ptr() if use_vi else None,
+        params=params.data_ptr(), out=out.data_ptr(),
+        shortcut=short.data_ptr() if strided else None,
+        n_rows=N, Cf=Cf, Gd=Gd, wsz=Wsz, mtk=MtK, M=M, K=K, Cx=Cx, Cg=Cg, Cs=Cs, W=W,
+        O=O, H=num_heads if gd else 0, Cpe=Cpe, Ct=Ct, lin=n_mlp, use_vi=int(use_vi),
+        pe_on_vi=int(pe_on_vi), concat_wni=int(concat_wni), strided=int(strided),
+        bf16=int(feat_table.dtype == torch.bfloat16), wn=mwn, pe=mpe, gd=mgd)
+    return a, out, short, (feat_table, geo_table, center_xyz, center_norm, params)
+
+
+def launch_tile(*args, **kw) -> tuple[int, int]:
+    """(points per block, dynamic shared memory bytes per block) that kernel
+    E picks for a call with these arguments (those of fused_layer_eval);
+    builds the library if needed."""
+    a = _prepare(*args, **kw)[0]
+    smem = ctypes.c_longlong()
+    mt = _lib().layer_eval_tile(ctypes.byref(a), ctypes.byref(smem))
+    return mt, smem.value
+
+
+def fused_layer_eval(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
+                     linear_w, linear_b, *, Cx: int, Cg: int = 0, Cs: int = 0,
+                     use_vi: bool, pe_on_vi: bool = True, concat_wni: bool = False,
+                     strided: bool = False, num_heads: int = 0):
+    """Kernel E on one layer: feat_table [N, Cx+Cg+Cs] f32/bf16, geo_table
+    [N, 3|6] f32, edges a WindowedEdges [M, K], centres [M, 3] f32, folded
+    (w [ci, co], b [co]) pairs of the WeightNet, PE and guidance MLPs, the
+    folded output linear [Ct*W, O] and [O]. Returns (out [M, O], shortcut
+    [M, Cs] or None) in the table's dtype."""
+    kw = dict(Cx=Cx, Cg=Cg, Cs=Cs, use_vi=use_vi, pe_on_vi=pe_on_vi,
+              concat_wni=concat_wni, strided=strided, num_heads=num_heads)
+    args = (feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
+            linear_w, linear_b)
+    if feat_table.device.type == "cpu":
+        return fused_layer_eval_plain(*args, **kw)
+    a, out, short, _ = _prepare(*args, **kw)
+    err = _lib().layer_eval(ctypes.byref(a),
+                            torch.cuda.current_stream(feat_table.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_layer_eval launch failed with CUDA error {err}")
+    fused_layer_eval.launches += 1
+    return out, short
+
+
+fused_layer_eval.launches = 0

@@ -12,6 +12,15 @@ window rows as pcf_tpu's scatter-add (mode="drop") does. Each takes its plain
 version for CPU tensors and launches its kernel for CUDA tensors, or raises;
 there is no fallback between the two. The backward runs only when the table
 needs a gradient: geometry tables need none.
+
+`window_resolve_flat` replaces pcf_tpu/ops/window.py::_fwd_kernel_flat (via
+windowed_take_flat), the same selection emitted k-major flat,
+out[m, k*C + c] = table[nei[m, k], c]. The TPU needed a kernel of its own
+for it only because Mosaic cannot fold sublanes into lanes in VMEM; on the
+H100 the row-major [T, Mt*K, C] output of kernel A is, byte for byte, the
+flat [M, K*C] array, so it launches kernel A and returns a view, counting
+its launches apart from A's. Like pcf_tpu's, it has no gradient: its output
+is detached, as the stop_gradient at pcf_tpu's call site makes it.
 """
 
 from __future__ import annotations
@@ -84,7 +93,6 @@ def _launch(table, window_rows, localT):
         torch.cuda.current_stream(table.device).cuda_stream)
     if err:
         raise RuntimeError(f"window_resolve launch failed with CUDA error {err}")
-    window_resolve.launches += 1
     return out
 
 
@@ -98,7 +106,9 @@ class WindowResolve(torch.autograd.Function):
         ctx.table_rows, ctx.table_dtype = table.shape[0], table.dtype
         if table.device.type == "cpu":
             return window_resolve_plain(table, window_rows, localT)
-        return _launch(table, window_rows, localT)
+        out = _launch(table, window_rows, localT)
+        window_resolve.launches += 1
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -116,3 +126,28 @@ def window_resolve(table: torch.Tensor, window_rows: torch.Tensor,
 
 
 window_resolve.launches = 0
+
+
+def windowed_take_flat_plain(table: torch.Tensor, window_rows: torch.Tensor,
+                             localT: torch.Tensor, K: int) -> torch.Tensor:
+    """Plain PyTorch version of the flat resolve: [N, C] -> [M, K*C]."""
+    out = window_resolve_plain(table, window_rows, localT)
+    return out.reshape(-1, K * table.shape[1])
+
+
+def window_resolve_flat(table: torch.Tensor, window_rows: torch.Tensor,
+                        localT: torch.Tensor, K: int) -> torch.Tensor:
+    """[N, C] table, [T, Wsz] window rows, [T, 1, Mt*K] slots -> [M, K*C],
+    k-major flat, with no gradient."""
+    table = table.detach()
+    if table.device.type == "cpu":
+        return windowed_take_flat_plain(table, window_rows, localT, K)
+    if localT.shape[-1] % K:
+        raise ValueError(f"window_resolve_flat: Mt*K={localT.shape[-1]} is not a "
+                         f"multiple of K={K}")
+    out = _launch(table, window_rows, localT)
+    window_resolve_flat.launches += 1
+    return out.reshape(-1, K * table.shape[1])
+
+
+window_resolve_flat.launches = 0

@@ -13,6 +13,8 @@ plain PyTorch version. Both are exact selections, equal bit for bit to
 table[nei.clamp(0, N-1)]. It is differentiable in the table: the backward
 is the window_scatter kernel (or its plain version), which drops the
 gradient of out-of-range rows as pcf_tpu's custom VJP does.
+`windowed_take_flat` is the same selection in k-major flat layout
+[M, K*C], with no gradient (ops/kernels/window_resolve.py).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pcf_torch.ops.kernels.window_resolve import window_resolve
+from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_flat
 
 
 # --------------------------------------------------------------------------
@@ -150,3 +152,10 @@ def windowed_take(table: torch.Tensor, edges: WindowedEdges) -> torch.Tensor:
     M, K = edges.nei.shape
     out = window_resolve(table.contiguous(), edges.window_rows, edges.localT)
     return out.reshape(M, K, table.shape[-1])
+
+
+def windowed_take_flat(table: torch.Tensor, edges: WindowedEdges) -> torch.Tensor:
+    """table[edges.nei] in k-major flat layout: [N, C] -> [M, K*C], with
+    out[m, k*C + c] == table[nei[m, k], c]; no gradient (geometry is data)."""
+    return window_resolve_flat(table.contiguous(), edges.window_rows, edges.localT,
+                               edges.nei.shape[1])

@@ -3,11 +3,12 @@
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Without a card every test skips (the `cuda` fixture decides, at run time).
-Tolerances are chip_smoke.py's: the resolve bit-exact; the fused kernels
-within 1e-4 in f32 and 1e-2 of the output scale in bf16 (a partial rounded
-to bf16 after an f32 sum in another order may move one bf16 step); the
-window scatter within 1e-5 of the output's scale in f32 (its atomics sum in
-another order) and one bf16 step in bf16.
+Tolerances are chip_smoke.py's: the resolve and the flat resolve
+bit-exact; the fused kernels and the whole-layer kernel within 1e-4 in f32
+and 1e-2 of the output scale in bf16 (a partial rounded to bf16 after an f32
+sum in another order may move one bf16 step), the whole-layer kernel's
+max-pool shortcut exact; the window scatter within 1e-5 of the output's
+scale in f32 (its atomics sum in another order) and one bf16 step in bf16.
 """
 
 import numpy as np
@@ -17,7 +18,10 @@ import torch
 from pcf_torch.ops.kernels.pconv_fused import (launch_tile, pconv_pe_conv_linear,
                                                pconv_pe_conv_linear_plain,
                                                pcf_conv_linear, pcf_conv_linear_plain)
-from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
+from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
+                                              launch_tile as layer_eval_tile)
+from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
+                                                  window_resolve_plain, windowed_take_flat_plain)
 from pcf_torch.ops.kernels.window_scatter import window_scatter, window_scatter_plain
 from pcf_torch.ops.window import build_windows
 
@@ -211,3 +215,93 @@ def test_fused_kernel_gradients_on_the_card(cuda, guided, windowed):
     want = torch.autograd.grad(plain(ins[0], edges, *ins[1:]), ins, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("C", [3, 6])
+def test_window_resolve_flat_bit_exact(cuda, C):
+    """The flat resolve of the stage geometry: [N, C] f32 -> [M, K*C]."""
+    e = _edges(cuda)
+    table = torch.randn(N, C, device=cuda)
+    n, a = window_resolve_flat.launches, window_resolve.launches
+    got = window_resolve_flat(table, e.window_rows, e.localT, K)
+    assert (window_resolve_flat.launches, window_resolve.launches) == (n + 1, a)
+    assert got.shape == (M, K * C) and not got.requires_grad
+    assert torch.equal(got, windowed_take_flat_plain(table, e.window_rows, e.localT, K))
+    assert torch.equal(got.reshape(M, K, C), table[e.nei.long().clamp(0, N - 1)])
+
+
+# widths of kernel E's four layer kinds: (Cx, Cg, PE MLP dims, heads, W, O,
+# shortcut width when strided); "flagship" as PCF_Normal's widest layer of
+# each kind
+LAYER_WIDTHS = {
+    ("pcf", "small"): (8, 8, [12, 8], 2, 4, 12, 16),
+    ("pcf", "flagship"): (80, 32, [12, 32], 8, 16, 160, 256),
+    ("stride", "small"): (8, 0, [3, 8, 4], 0, 4, 12, 16),
+    ("stride", "flagship"): (16, 0, [3, 16, 16], 0, 16, 32, 64),
+    ("pointconv", "small"): (7, 0, [], 0, 4, 16, 0),
+    ("pointconv", "flagship"): (6, 0, [], 0, 16, 64, 0),
+    ("transpose", "small"): (32, 0, [3, 8, 4], 0, 1, 16, 0),
+    ("transpose", "flagship"): (320, 0, [3, 64, 32], 0, 1, 256, 0),
+}
+
+
+def _layer_call(cuda, kind, width, strided, dtype, seed=0):
+    """(args, kwargs) of one fused_layer_eval call on random folded weights."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Cx, Cg, pe_dims, H, W, O, Cs = LAYER_WIDTHS[(kind, width)]
+    Cs = Cs if strided else 0
+
+    def pairs(dims):
+        return [(torch.randn(ci, co, device=cuda, generator=g) / ci ** 0.5,
+                 0.1 * torch.randn(co, device=cuda, generator=g))
+                for ci, co in zip(dims, dims[1:])]
+
+    wn, pe = pairs([12, 8, 8, W]), pairs(pe_dims)
+    gd = pairs([Cg + pe_dims[-1], 8, H]) if kind == "pcf" else []
+    Ct = Cx if gd else Cx + (12 if kind == "pointconv" else pe_dims[-1])
+    nrm = torch.randn(N, 3, device=cuda, generator=g)
+    geo = torch.cat([2 * torch.randn(N, 3, device=cuda, generator=g),
+                     nrm / nrm.norm(dim=1, keepdim=True)], dim=1)
+    cn = torch.randn(M, 3, device=cuda, generator=g)
+    args = (torch.randn(N, Cx + Cg + Cs, device=cuda, generator=g).to(dtype), geo,
+            _edges(cuda, seed), 2 * torch.randn(M, 3, device=cuda, generator=g),
+            cn / cn.norm(dim=1, keepdim=True), wn, pe, gd,
+            torch.randn(Ct * W, O, device=cuda, generator=g) / (Ct * W) ** 0.5,
+            0.1 * torch.randn(O, device=cuda, generator=g))
+    kw = dict(Cx=Cx, Cg=Cg, Cs=Cs, use_vi=True, pe_on_vi=kind == "pcf",
+              concat_wni=kind == "pointconv", strided=strided, num_heads=H)
+    return args, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", ["small", "flagship"])
+@pytest.mark.parametrize("kind,strided", [("pcf", False), ("pcf", True), ("stride", False),
+                                          ("stride", True), ("pointconv", False),
+                                          ("transpose", False)])
+def test_fused_layer_eval(cuda, kind, strided, width, dtype):
+    """Kernel E against its plain version: every layer kind, strided or not,
+    at small and flagship widths, f32 and bf16."""
+    args, kw = _layer_call(cuda, kind, width, strided, dtype)
+    n = fused_layer_eval.launches
+    with torch.no_grad():
+        got, short = fused_layer_eval(*args, **kw)
+        want, want_short = fused_layer_eval_plain(*args, **kw)
+    assert fused_layer_eval.launches == n + 1 and got.dtype == dtype
+    _check(got.float(), want.float(), dtype)
+    if strided:
+        assert torch.equal(short, want_short)
+    else:
+        assert short is None
+    mt, smem = layer_eval_tile(*args, **kw)
+    assert mt in (4, 8, 16) and 0 < smem <= 227 * 1024
+
+
+def test_fused_layer_eval_refuses_what_it_does_not_take(cuda):
+    args, kw = _layer_call(cuda, "pcf", "small", False, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_layer_eval(args[0].requires_grad_(True), *args[1:], **kw)
+    args[0].requires_grad_(False)
+    with pytest.raises(ValueError):  # the geometry must be f32
+        fused_layer_eval(args[0], args[1].double(), *args[2:], **kw)
+    with pytest.raises(ValueError):  # heads must divide the channels
+        fused_layer_eval(*args, **dict(kw, num_heads=3))
