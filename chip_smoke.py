@@ -18,7 +18,11 @@ Phases (any failure exits non-zero, before the last line is printed):
              inputs against the kernel's plain PyTorch version: window_resolve
              bit-exact; the fused kernels in both index modes within
              tolerance; times from CUDA events beside the plain version's,
-             the bound and, for the resolve, torch.index_select's;
+             the bound and, for the resolve, torch.index_select's; kernel
+             B's launch shape per width and point count (points per block,
+             O slices, channel ranges, blocks, shared memory, where the
+             projection runs) and time over that shape's calls,
+             kernel C's tile per width;
   5 model    the entry-size model (2 x 4000 points) on the card against the
              same weights on the CPU, where the plain versions run;
   6 train    the flagship training step (the same batch, AdamW, remat_blocks,
@@ -31,7 +35,9 @@ Phases (any failure exits non-zero, before the last line is printed):
   7 scatter  every window_scatter (kernel D) call of that step, replayed
              against its plain version: f32 within 1e-5 of the output's
              scale, bf16 within one bf16 step; times as in phase 4, beside
-             index_add_'s;
+             index_add_'s, D's time split into the inverse of the
+             edge -> row map (its first pass) and the reduction, and how
+             many edges overflowed their row's bucket;
   8 grads    one f32 train step at the entry size on the card, the same
              weights and batch on the CPU in f32 and in float64: the loss and
              every BN running statistic after the step, card against CPU;
@@ -121,7 +127,7 @@ FOLD_TOL = dict(atol=1e-2, rtol=1e-2)
 
 SOURCES = {
     "window_resolve": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:369"),
-    "pcf_conv_linear": ("pcf_torch/csrc/pconv_fused.cu",
+    "pcf_conv_linear": ("pcf_torch/csrc/pcf_conv_linear.cu",
                         "pcf_tpu/ops/pallas/pconv_kernel.py:466"),
     "pconv_pe_conv_linear": ("pcf_torch/csrc/pconv_fused.cu",
                              "pcf_tpu/ops/pallas/pconv_kernel.py:498"),
@@ -359,12 +365,13 @@ def main() -> int:
     from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
                                                   launch_tile as layer_eval_tile)
     from pcf_torch.ops.kernels.pconv_fused import (
-        launch_tile, pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
-        pcf_conv_linear_plain)
+        launch_shape, launch_tile, pconv_pe_conv_linear, pconv_pe_conv_linear_plain,
+        pcf_conv_linear, pcf_conv_linear_plain)
     from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
                                                       window_resolve_plain,
                                                       windowed_take_flat_plain)
-    from pcf_torch.ops.kernels.window_scatter import window_scatter, window_scatter_plain
+    from pcf_torch.ops.kernels.window_scatter import (bucket_cap, window_scatter,
+                                                      window_scatter_inverse, window_scatter_plain)
     from pcf_torch.ops.window import WindowedEdges
     from pcf_torch.train.loss import cross_entropy_loss
 
@@ -489,14 +496,29 @@ def main() -> int:
         dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
         for kname, calls in run["calls"].items():
             kern, plain = kernels[kname], plains[kname]
-            if kname != "window_resolve":
+            if kname == "pcf_conv_linear":
+                shapes = sorted({(a[0].shape[1], a[2].shape[-1], a[3].shape[2], a[3].shape[1],
+                                  a[4].shape[1], a[3].shape[0]) for a in calls})
+                for C, H, W, K, O, M in shapes:
+                    sh = launch_shape(C, K, W, O, M, bf16=dt == torch.bfloat16)
+                    same = [a for a in calls if a[3].shape[0] == M and a[4].shape[1] == O
+                            and a[0].shape[1] == C]
+                    with torch.no_grad():
+                        shape_ms = cuda_ms(lambda: [kern(*a) for a in same])
+                    log(f"[kernels] {kname} {dtype_name} C={C} H={H} W={W} K={K} O={O} M={M}: "
+                        f"{sh['points']} points per block, {sh['o_slices']} O slice(s) of "
+                        f"{sh['o_per_slice']}, {sh['c_splits']} channel range(s), grid "
+                        f"{sh['blocks']} blocks of {sh['threads']} "
+                        f"threads, {sh['smem'] / 1024:.1f} KiB dynamic shared memory, "
+                        f"projection on {sh['projection']}; {len(same)} calls, "
+                        f"{shape_ms:.3f} ms")
+            elif kname == "pconv_pe_conv_linear":
                 widths = sorted({(a[0].shape[1], 0 if a[2] is None else a[2].shape[-1],
                                   a[3].shape[2], a[3].shape[1]) for a in calls})
-                for C, E, W, K in widths:
-                    mt, smem = launch_tile(kname == "pcf_conv_linear", C, E, W, K)
-                    log(f"[kernels] {kname} {dtype_name} C={C} {'H' if kname == 'pcf_conv_linear' else 'P'}"
-                        f"={E} W={W} K={K}: {mt} points per block, {smem / 1024:.1f} KiB "
-                        f"dynamic shared memory")
+                for C, P, W, K in widths:
+                    mt, smem = launch_tile(C, P, W, K)
+                    log(f"[kernels] {kname} {dtype_name} C={C} P={P} W={W} K={K}: {mt} points "
+                        f"per block, {smem / 1024:.1f} KiB dynamic shared memory")
             # the main path's calls first: the JSON line reports them
             modes = {"window": calls}
             if kname != "window_resolve":
@@ -640,6 +662,7 @@ def main() -> int:
                                       atol=SCATTER_F32_REL * scale), (
                     f"window_scatter {dtype_name}: max err {diff:.3e} (scale {scale:.3e})")
             ms = cuda_ms(lambda: [window_scatter(*a) for a in calls])
+            inverse_ms = cuda_ms(lambda: [window_scatter_inverse(*a) for a in calls])
             plain_ms = cuda_ms(lambda: [window_scatter_plain(*a) for a in calls], reps=3)
             # the yardstick: one index_add_ over the edges' rows (every row of
             # these windows is in range, so the clamp changes nothing)
@@ -653,6 +676,17 @@ def main() -> int:
                         for (g, _, _, n, _), nei in zip(calls, neis)]
 
             lib_ms = cuda_ms(library)
+        # how much of the step's fan-in the buckets hold: the edges past a
+        # row's bucket go through the overflow pass
+        over = heavy = 0
+        for _, wr, lt, n, _ in calls:
+            rows = torch.gather(wr, 1, lt[:, 0].long().clamp(0, wr.shape[1] - 1)).reshape(-1)
+            counts = torch.bincount(rows[(rows >= 0) & (rows < n)], minlength=n)
+            cap = bucket_cap(n, rows.numel())
+            over += int((counts - cap).clamp(min=0).sum())
+            heavy += int((counts > cap).sum())
+        log(f"[scatter] window_scatter {dtype_name}: {sum(a[2].numel() for a in calls)} edges "
+            f"per step, {over} past their row's bucket, {heavy} rows overflowed")
         tot_b = sum(g.numel() * g.element_size() + (wr.numel() + lt.numel()) * 4
                     + n * g.shape[-1] * (4 + (2 if dt == torch.bfloat16 else 0))
                     for g, wr, lt, n, dt in calls)
@@ -664,7 +698,8 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
             dtype=dtype_name)
         log(f"[scatter] window_scatter {dtype_name}: {len(calls)} calls per train step, "
-            f"max abs err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"max abs err {err:.3e}, kernel {ms:.3f} ms (inverse {inverse_ms:.3f} ms, "
+            f"reduction {ms - inverse_ms:.3f} ms), plain {plain_ms:.3f} ms, "
             f"index_add_ {lib_ms:.3f} ms, bound {b_ms:.4f} ms by bytes "
             f"({tot_b / 1e6:.1f} MB)")
     del train_runs, run, calls

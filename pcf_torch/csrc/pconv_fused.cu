@@ -1,21 +1,20 @@
-// Fused neighbourhood conv + output linear, in two forms:
+// Kernel C, the fused neighbourhood conv + output linear in its PE form:
 //
-//   pcf_conv_linear       (guided):  x[m,k,c] = feats[row(m,k), c] * guid[m,k,c % H]
-//   pconv_pe_conv_linear  (PE):      x[m,k,:] = feats[row(m,k), :] ++ add[m,k,:]  (P >= 0)
-//
+//   x[m,k,:]  = feats[row(m,k), :] ++ add[m,k,:]  (P >= 0)
 //   out[m, o] = b[o] + sum_{c,w} (sum_k x[m,k,c] * v[m,k,w]) * L[c*W + w, o]
 //
-// Replaces the Pallas kernels of pcf_tpu/ops/pallas/pconv_kernel.py:
-// _make_pcf_kernel and _pconv_kernel (launched by _run_fused, plain edges)
-// and _make_windowed_kernel (launched by _run_fused_windowed, WindowedEdges),
-// each in its guided and its PE form. Both index modes are taken here:
+// Replaces the Pallas kernels of pcf_tpu/ops/pallas/pconv_kernel.py in their
+// PE form: _pconv_kernel (launched by _run_fused, plain edges) and
+// _make_windowed_kernel (launched by _run_fused_windowed via
+// _pconv_pe_linear_win, WindowedEdges). The guided form, kernel B, has its
+// own design in pcf_conv_linear.cu. Both index modes are taken here:
 //   nei [M, K]                       row(m,k) = nei[m, k]
 //   window_rows [T, Wsz], localT     row(m,k) = window_rows[t, localT[t, 0, e]]
 //                [T, 1, Mt*K]        with t = m / Mt, e = (m % Mt) * K + k
 // Rows are clamped to the table like jnp.take(mode="clip").
 //
 // What the TPU kernel exists for, and this one keeps: the [M, Ct*W]
-// contraction output (Ct = C, or C + P) never reaches device memory. A block
+// contraction output (Ct = C + P) never reaches device memory. A block
 // takes a tile of mt points, gathers their K neighbour rows straight from the
 // table (the H100 needs no staged window for that: it loads any row at
 // sector granularity), forms the [mt, Ct*W] tile in shared memory, and
@@ -23,7 +22,7 @@
 //
 // What bounds it on the H100: at the flagship shapes, fp32 arithmetic. The
 // projection is 2*M*Ct*W*O operations on the CUDA cores (this first version
-// uses no tensor cores), and the neighbourhood gather and v/guidance tiles
+// uses no tensor cores), and the neighbourhood gather and v/PE tiles
 // are read once. The design keeps the gathered rows and the tile out of
 // device memory, reuses each L element loaded from L2 for 4 output rows in
 // registers, and reads each tile element from shared memory as a warp-wide
@@ -64,7 +63,7 @@ struct Args {
   const int* nei;           // [M, K] or null (window mode)
   const int* window_rows;   // [T, wsz]
   const int* localT;        // [T, 1, mtk]
-  const void* extra;        // guided: guidance [M, K, E=H]; PE: add [M, K, E=P]
+  const void* extra;        // add [M, K, E=P]
   const void* v;            // [M, K, W] T
   const float* L;           // [Ct*W, O]
   const float* bias;        // [O]
@@ -72,7 +71,7 @@ struct Args {
   int n_rows, C, wsz, mtk, E, W, O, M, K, mt;
 };
 
-template <typename T, bool GUIDED, int WMAX>
+template <typename T, int WMAX>
 __global__ void __launch_bounds__(kThreads)
 fused_conv_linear_kernel(const Args a) {
   extern __shared__ float smem[];
@@ -80,7 +79,7 @@ fused_conv_linear_kernel(const Args a) {
   const T* __restrict__ extra = static_cast<const T*>(a.extra);
   const T* __restrict__ v = static_cast<const T*>(a.v);
   const int K = a.K, W = a.W, E = a.E, C = a.C, O = a.O;
-  const int Ct = GUIDED ? C : C + E;
+  const int Ct = C + E;
   const int CtW = Ct * W;
   const int m0 = blockIdx.x * a.mt;
   const int mt = min(a.mt, a.M - m0);
@@ -105,7 +104,7 @@ fused_conv_linear_kernel(const Args a) {
     }
     rows[i] = min(max(r, 0), a.n_rows - 1);
   }
-  // 2. the tile's v and guidance/PE rows: contiguous in device memory
+  // 2. the tile's v and PE rows: contiguous in device memory
   const long long base = (long long)m0 * K;
   for (int i = tid; i < mt * K * W; i += kThreads)
     vs[i] = to_float(v[base * W + i]);
@@ -122,13 +121,8 @@ fused_conv_linear_kernel(const Args a) {
     for (int w = 0; w < WMAX; ++w) acc[w] = 0.f;
     for (int k = 0; k < K; ++k) {
       const int i = m * K + k;
-      float x;
-      if (GUIDED) {
-        x = to_float(feats[(long long)rows[i] * C + c]) * es[i * E + c % E];
-      } else {
-        x = c < C ? to_float(feats[(long long)rows[i] * C + c])
-                  : es[i * E + (c - C)];
-      }
+      const float x = c < C ? to_float(feats[(long long)rows[i] * C + c])
+                            : es[i * E + (c - C)];
       const float* vr = vs + i * W;
 #pragma unroll
       for (int w = 0; w < WMAX; ++w)
@@ -166,7 +160,7 @@ fused_conv_linear_kernel(const Args a) {
   }
 }
 
-// Dynamic shared memory of a block of mt points: rows, v, guidance/PE, tile.
+// Dynamic shared memory of a block of mt points: rows, v, PE, tile.
 size_t smem_bytes(int mt, int K, int W, int E, int Ct) {
   return sizeof(float) * (size_t)mt * (K * (1 + W + E) + Ct * W);
 }
@@ -178,9 +172,9 @@ int tile_points(int K, int W, int E, int Ct) {
   return smem_bytes(mt, K, W, E, Ct) > kMaxSmem ? 0 : mt;
 }
 
-template <typename T, bool GUIDED, int WMAX>
+template <typename T, int WMAX>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = fused_conv_linear_kernel<T, GUIDED, WMAX>;
+  auto kernel = fused_conv_linear_kernel<T, WMAX>;
   // The opt-in holds for the current device only, so it is made on every
   // launch above the default 48 KB; it costs far less than the launch.
   if (smem > 48 * 1024) {
@@ -193,28 +187,26 @@ int launch(const Args& a, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool GUIDED>
+template <typename T>
 int launch_for_w(Args a, cudaStream_t stream) {
-  const int Ct = GUIDED ? a.C : a.C + a.E;
+  const int Ct = a.C + a.E;
   a.mt = tile_points(a.K, a.W, a.E, Ct);
   if (a.mt == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(a.mt, a.K, a.W, a.E, Ct);
-  if (a.W <= 1) return launch<T, GUIDED, 1>(a, smem, stream);
-  if (a.W <= 2) return launch<T, GUIDED, 2>(a, smem, stream);
-  if (a.W <= 4) return launch<T, GUIDED, 4>(a, smem, stream);
-  if (a.W <= 8) return launch<T, GUIDED, 8>(a, smem, stream);
-  if (a.W <= 16) return launch<T, GUIDED, 16>(a, smem, stream);
+  if (a.W <= 1) return launch<T, 1>(a, smem, stream);
+  if (a.W <= 2) return launch<T, 2>(a, smem, stream);
+  if (a.W <= 4) return launch<T, 4>(a, smem, stream);
+  if (a.W <= 8) return launch<T, 8>(a, smem, stream);
+  if (a.W <= 16) return launch<T, 16>(a, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool GUIDED>
 int run(int bf16, const void* feats, int n_rows, int C, const void* nei,
         const void* window_rows, const void* localT, int wsz, int mtk,
         const void* extra, int E, const void* v, int W, const void* L,
         const void* bias, int O, void* out, int M, int K, void* stream) {
   if (M == 0 || O == 0) return 0;
   if (M < 0 || K <= 0 || C <= 0 || W <= 0 || n_rows <= 0 || E < 0 ||
-      (GUIDED && (E <= 0 || C % E != 0)) ||
       (nei == nullptr && (wsz <= 0 || mtk <= 0 || mtk % K != 0)))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -237,27 +229,14 @@ int run(int bf16, const void* feats, int n_rows, int C, const void* nei,
   a.M = M;
   a.K = K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_for_w<__nv_bfloat16, GUIDED>(a, s)
-              : launch_for_w<float, GUIDED>(a, s);
+  return bf16 ? launch_for_w<__nv_bfloat16>(a, s) : launch_for_w<float>(a, s);
 }
 
 }  // namespace
 
-// feats, guidance and v share one type: bf16 if bf16 != 0, else f32.
-// L [C*W, O] and bias [O] are f32; out [M, O] f32. nei may be null, and then
-// window_rows / localT / wsz / mtk give the rows.
-extern "C" int pcf_conv_linear(int bf16, const void* feats, int n_rows, int C,
-                               const void* nei, const void* window_rows,
-                               const void* localT, int wsz, int mtk,
-                               const void* guidance, int H, const void* v,
-                               int W, const void* L, const void* bias, int O,
-                               void* out, int M, int K, void* stream) {
-  return run<true>(bf16, feats, n_rows, C, nei, window_rows, localT, wsz, mtk,
-                   guidance, H, v, W, L, bias, O, out, M, K, stream);
-}
-
-// As above with PE features add [M, K, P] (P may be 0) appended to the
-// gathered rows; L is [(C+P)*W, O].
+// feats, add [M, K, P] (P may be 0) and v share one type: bf16 if bf16 != 0,
+// else f32. L [(C+P)*W, O] and bias [O] are f32; out [M, O] f32. nei may be
+// null, and then window_rows / localT / wsz / mtk give the rows.
 extern "C" int pconv_pe_conv_linear(int bf16, const void* feats, int n_rows,
                                     int C, const void* nei,
                                     const void* window_rows,
@@ -266,17 +245,15 @@ extern "C" int pconv_pe_conv_linear(int bf16, const void* feats, int n_rows,
                                     int W, const void* L, const void* bias,
                                     int O, void* out, int M, int K,
                                     void* stream) {
-  return run<false>(bf16, feats, n_rows, C, nei, window_rows, localT, wsz, mtk,
-                    add, P, v, W, L, bias, O, out, M, K, stream);
+  return run(bf16, feats, n_rows, C, nei, window_rows, localT, wsz, mtk, add, P, v, W,
+             L, bias, O, out, M, K, stream);
 }
 
-// The launch shape either entry point picks for these widths (E = H guided,
-// E = P otherwise): returns the points per block (0: no tile fits) and
-// stores the block's dynamic shared memory in *smem.
-extern "C" int pconv_fused_tile(int guided, int C, int E, int W, int K,
-                                long long* smem) {
-  const int Ct = guided ? C : C + E;
-  const int mt = tile_points(K, W, E, Ct);
-  *smem = mt ? (long long)smem_bytes(mt, K, W, E, Ct) : 0;
+// The launch shape pconv_pe_conv_linear picks for these widths: returns the
+// points per block (0: no tile fits) and stores the block's dynamic shared
+// memory in *smem.
+extern "C" int pconv_fused_tile(int C, int P, int W, int K, long long* smem) {
+  const int mt = tile_points(K, W, P, C + P);
+  *smem = mt ? (long long)smem_bytes(mt, K, W, P, C + P) : 0;
   return mt;
 }

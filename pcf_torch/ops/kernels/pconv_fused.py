@@ -7,8 +7,10 @@ with pconv(x, v)[m, c*W + w] = sum_k x[m,k,c] * v[m,k,w] (c-major). They
 replace pcf_tpu/ops/pallas/pconv_kernel.py::_make_pcf_kernel and
 ::_pconv_kernel (plain edges, via _run_fused) and ::_make_windowed_kernel
 (WindowedEdges, via _run_fused_windowed), each in its guided and PE forms.
-The CUDA source, csrc/pconv_fused.cu, says what bounds them and how a block
-keeps the [M, Ct*W] contraction output out of device memory.
+The CUDA sources, csrc/pcf_conv_linear.cu (B: 64-point tiles, L staged by
+cp.async, the bf16 projection on the tensor cores) and csrc/pconv_fused.cu
+(C), say what bounds them and how a block keeps the [M, Ct*W] contraction
+output out of device memory.
 
 Each wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors, or raises; there is no fallback. `edges` is either the
@@ -36,7 +38,7 @@ from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_
 from pcf_torch.ops.window import WindowedEdges
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_W = 16  # the kernel's register tile of W partial sums
+_MAX_W = 16  # the kernels' register tile of W partial sums
 
 
 def _gather_plain(feats, edges) -> torch.Tensor:
@@ -109,23 +111,62 @@ def pconv_pe_conv_linear_plain(feats, edges, add, weights, linear_w, linear_b):
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("pconv_fused")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.pcf_conv_linear, lib.pconv_pe_conv_linear):
-        fn.argtypes = [i, p, i, i, p, p, p, i, i, p, i, p, i, p, p, i, p, i, i, p]
-        fn.restype = i
-    lib.pconv_fused_tile.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
-    lib.pconv_fused_tile.restype = i
+def _lib(name: str) -> ctypes.CDLL:
+    """The library of kernel B ("pcf_conv_linear") or C ("pconv_pe_conv_linear")."""
+    ll, p, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    if name == "pcf_conv_linear":
+        lib = build.load("pcf_conv_linear")
+        lib.pcf_conv_linear_shape.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ll)]
+        lib.pcf_conv_linear_shape.restype = None
+    else:
+        lib = build.load("pconv_fused")
+        lib.pconv_fused_tile.argtypes = [i, i, i, i, ctypes.POINTER(ll)]
+        lib.pconv_fused_tile.restype = i
+    fn = getattr(lib, name)
+    fn.argtypes = [i, p, i, i, p, p, p, i, i, p, i, p, i, p, p, i, p, i, i, p]
+    fn.restype = i
     return lib
 
 
-def launch_tile(guided: bool, C: int, E: int, W: int, K: int) -> tuple[int, int]:
+def launch_tile(C: int, P: int, W: int, K: int) -> tuple[int, int]:
     """(points per block, dynamic shared memory bytes per block) that kernel
-    B (guided) or C picks for these widths; builds the library if needed."""
+    C picks for these widths; builds its library if needed."""
     smem = ctypes.c_longlong()
-    mt = _lib().pconv_fused_tile(int(guided), C, E, W, K, ctypes.byref(smem))
+    mt = _lib("pconv_pe_conv_linear").pconv_fused_tile(C, P, W, K, ctypes.byref(smem))
     return mt, smem.value
+
+
+def launch_shape(C: int, K: int, W: int, O: int, M: int, bf16: bool) -> dict:
+    """The launch shape of kernel B for these sizes: points per block, O
+    slices and columns per slice, channel-chunk ranges (blocks that add
+    their partial outputs), blocks, dynamic shared memory bytes, threads per
+    block, and where the projection runs."""
+    out = (ctypes.c_longlong * 8)()
+    _lib("pcf_conv_linear").pcf_conv_linear_shape(int(bf16), C, K, W, O, M, out)
+    return dict(points=out[0], o_slices=out[1], o_per_slice=out[2], c_splits=out[3],
+                blocks=out[4], smem=out[5], threads=out[6],
+                projection="mma.sync m16n8k16 bf16" if out[7] else "CUDA cores f32")
+
+
+def _bf16_weight(lw: torch.Tensor) -> torch.Tensor:
+    """Kernel B's bf16 projection operand: L rounded to bf16 (as the plain
+    version rounds it), columns zero-padded to a multiple of 8. Kept on the
+    tensor until its data_ptr or _version changes (an optimizer step, a
+    load_state_dict), as nn/fused_eval.py keeps its folds."""
+    key = (lw.data_ptr(), lw._version)
+    cached = getattr(lw, "_pcf_bf16", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    CW, O = lw.shape
+    OP = -(-O // 8) * 8
+    with torch.no_grad():
+        if OP == O:
+            copy = lw.to(torch.bfloat16, copy=True)
+        else:
+            copy = lw.new_zeros((CW, OP), dtype=torch.bfloat16)
+            copy[:, :O] = lw
+    lw._pcf_bf16 = (key, copy)
+    return copy
 
 
 def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
@@ -164,6 +205,8 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
         raise ValueError(f"{name}: W={W} exceeds the kernel's {_MAX_W}")
     if name == "pcf_conv_linear" and C % E:
         raise ValueError(f"{name}: channels {C} not divisible by heads {E}")
+    if name == "pcf_conv_linear" and feats.dtype == torch.bfloat16:
+        linear_w = _bf16_weight(linear_w)
     if isinstance(edges, WindowedEdges):
         T, Wsz = edges.window_rows.shape
         MtK = edges.localT.shape[-1]
@@ -175,7 +218,7 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
         Wsz = MtK = 0
         nei, wr, lt = edges.data_ptr(), None, None
     out = torch.empty((M, O), dtype=torch.float32, device=dev)
-    err = getattr(_lib(), name)(
+    err = getattr(_lib(name), name)(
         int(feats.dtype == torch.bfloat16), feats.data_ptr(), N, C, nei, wr, lt,
         Wsz, MtK, extra.data_ptr(), E, weights.data_ptr(), W,
         linear_w.data_ptr(), linear_b.data_ptr(), O, out.data_ptr(), M, K,

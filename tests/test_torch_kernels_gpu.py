@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from pcf_torch.ops.kernels.pconv_fused import (launch_tile, pconv_pe_conv_linear,
+from pcf_torch.ops.kernels.pconv_fused import (launch_shape, launch_tile,
+                                               pconv_pe_conv_linear,
                                                pconv_pe_conv_linear_plain,
                                                pcf_conv_linear, pcf_conv_linear_plain)
 from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
@@ -106,10 +107,20 @@ def test_pconv_pe_conv_linear(cuda, dtype, windowed, C, P, W, O):
 
 
 def test_launch_tile_of_the_widest_guided_layer(cuda):
-    """PCFLayer at the coarsest level (C=80, H=8, W=16, K=16): 16 points
-    per block, 4 * 16 * (16 * (1 + 16 + 8) + 80 * 16) bytes, above the
-    48 KB that needs no opt-in."""
-    assert launch_tile(True, 80, 8, 16, 16) == (16, 107520)
+    """PCFLayer at the widest level (C=80, W=16, K=16, O=160), kernel B:
+    64 points per block. At M=40960, f32: one O slice (padded to 256
+    columns), 640 blocks; shared memory rows 4096 + x 64*68*4 + S 64*64*4
+    + two L chunks 2*64*256*4. At M=512, bf16: the 8 tiles take 5 ranges
+    of 2 channel chunks and 3 O slices of 56 columns (padded to 64): 120
+    blocks; rows 4096 + x 64*132*4 + S 64*136*2 + two L chunks 2*128*72*2.
+    Kernel C keeps its tile (C=6, P=12: 16 points)."""
+    assert launch_shape(80, 16, 16, 160, 40960, bf16=False) == dict(
+        points=64, o_slices=1, o_per_slice=160, c_splits=1, blocks=640, smem=168960,
+        threads=256, projection="CUDA cores f32")
+    assert launch_shape(80, 16, 16, 160, 512, bf16=True) == dict(
+        points=64, o_slices=3, o_per_slice=56, c_splits=5, blocks=120, smem=92160,
+        threads=256, projection="mma.sync m16n8k16 bf16")
+    assert launch_tile(6, 12, 16, 16) == (16, 48128)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -124,6 +135,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pcf_conv_linear(torch.randn(N, 6, device=cuda), e,
                         torch.rand(M, K, 4, device=cuda), torch.randn(M, K, 2, device=cuda),
                         torch.randn(12, 8, device=cuda), torch.randn(8, device=cuda))
+
+
+FLAGSHIP_B = [(32, 64), (48, 96), (64, 128), (80, 160)]  # PCFLayer (C, O), H=8, W=16
+
+
+def _band_edges(cuda, M, N, seed):
+    """Windowed edges of M points over an N-row table, Morton-like bands."""
+    rng = np.random.default_rng(seed)
+    base = (np.arange(M) * max(N - 400, 1) // M)[:, None]
+    nei = ((base + rng.integers(0, 400, size=(M, K))) % N).astype(np.int32)
+    return build_windows(nei, tile=TILE, window=WIN).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("windowed", [True, False], ids=["window", "nei"])
+@pytest.mark.parametrize("Mb", [512, 40960])
+@pytest.mark.parametrize("C,O", FLAGSHIP_B, ids=[f"C{c}" for c, _ in FLAGSHIP_B])
+def test_pcf_conv_linear_flagship_widths(cuda, C, O, Mb, windowed, dtype):
+    """Kernel B at every PCFLayer width of the flagship, at the coarsest and
+    the finest level's point count: the small grid splits O into slices,
+    the large one takes one slice per tile."""
+    e = _band_edges(cuda, Mb, max(Mb, 1024), 7)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n_rows = max(Mb, 1024)
+    feats = torch.randn(n_rows, C, device=cuda, generator=g).to(dtype)
+    guid = torch.rand(Mb, K, 8, device=cuda, generator=g).to(dtype)
+    v = torch.randn(Mb, K, 16, device=cuda, generator=g).to(dtype)
+    lw = torch.randn(C * 16, O, device=cuda, generator=g) / (C * 16) ** 0.5
+    lb = torch.randn(O, device=cuda, generator=g)
+    edges = e if windowed else e.nei
+    n = pcf_conv_linear.launches
+    got = pcf_conv_linear(feats, edges, guid, v, lw, lb)
+    assert pcf_conv_linear.launches == n + 1
+    _check(got, pcf_conv_linear_plain(feats, edges, guid, v, lw, lb), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pcf_conv_linear_partial_tile(cuda, dtype):
+    """Kernel B with M not a multiple of its 64-point tile (plain edges), O
+    not a multiple of 8 and heads that do not divide its channel chunk."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    Mp, C, H, W, O = 4000, 24, 6, 16, 44
+    nei = torch.randint(0, N, (Mp, K), device=cuda, generator=g, dtype=torch.int32)
+    feats = torch.randn(N, C, device=cuda, generator=g).to(dtype)
+    guid = torch.rand(Mp, K, H, device=cuda, generator=g).to(dtype)
+    v = torch.randn(Mp, K, W, device=cuda, generator=g).to(dtype)
+    lw = torch.randn(C * W, O, device=cuda, generator=g) / (C * W) ** 0.5
+    lb = torch.randn(O, device=cuda, generator=g)
+    got = pcf_conv_linear(feats, nei, guid, v, lw, lb)
+    _check(got, pcf_conv_linear_plain(feats, nei, guid, v, lw, lb), dtype)
+
+
+def test_pcf_conv_linear_bf16_weight_follows_updates(cuda):
+    """Kernel B's bf16 copy of L is rebuilt after an in-place update."""
+    e = _edges(cuda, 8)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    feats = torch.randn(N, 32, device=cuda, generator=g).bfloat16()
+    guid = torch.rand(M, K, 8, device=cuda, generator=g).bfloat16()
+    v = torch.randn(M, K, 16, device=cuda, generator=g).bfloat16()
+    lw = torch.nn.Parameter(torch.randn(32 * 16, 64, device=cuda, generator=g) / 512 ** 0.5)
+    lb = torch.randn(64, device=cuda, generator=g)
+    with torch.no_grad():
+        before = pcf_conv_linear(feats, e, guid, v, lw, lb)
+        lw.mul_(2.0)
+        after = pcf_conv_linear(feats, e, guid, v, lw, lb)
+        _check(after, pcf_conv_linear_plain(feats, e, guid, v, lw, lb), torch.bfloat16)
+    assert not torch.allclose(before, after)
 
 
 def _check_scatter(got, want, dtype):
@@ -162,6 +240,28 @@ def test_window_scatter_matches_plain(cuda, dtype, C, win):
     assert window_scatter.launches == n + 1 and got.dtype == dtype
     want = window_scatter_plain(g, e.window_rows, e.localT, N, dtype)
     _check_scatter(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 6])
+def test_window_scatter_padding_fan_in(cuda, dtype, C):
+    """45,000 edges name row 0 (padded points all point there, as
+    core/batching.py packs them), beside ordinary neighbourhoods and a
+    dropped row: the overflow pass carries the fan-in."""
+    Mp, n_rows = 8192, 6000
+    rng = np.random.default_rng(9)
+    base = (np.arange(Mp) * (n_rows - 400) // Mp)[:, None]
+    nei = (base + rng.integers(0, 400, size=(Mp, K))).astype(np.int32)
+    nei.reshape(-1)[-45000:] = 0
+    e = build_windows(nei, tile=TILE, window=WIN).to(cuda)
+    e.window_rows[0, -1] = n_rows + 2
+    e.localT[0, 0, :3] = WIN - 1
+    g = torch.randn(e.localT.shape[0], e.localT.shape[-1], C, device=cuda).to(dtype)
+    n = window_scatter.launches
+    got = window_scatter(g, e.window_rows, e.localT, n_rows, dtype)
+    assert window_scatter.launches == n + 1 and got.dtype == dtype
+    _check_scatter(got, window_scatter_plain(g, e.window_rows, e.localT, n_rows, dtype),
+                   dtype)
 
 
 def test_window_scatter_bf16_sums_in_f32(cuda):
