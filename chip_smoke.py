@@ -18,11 +18,11 @@ Phases (any failure exits non-zero, before the last line is printed):
              inputs against the kernel's plain PyTorch version: window_resolve
              bit-exact; the fused kernels in both index modes within
              tolerance; times from CUDA events beside the plain version's,
-             the bound and, for the resolve, torch.index_select's; kernel
-             B's launch shape per width and point count (points per block,
-             O slices, channel ranges, blocks, shared memory, where the
-             projection runs) and time over that shape's calls,
-             kernel C's tile per width;
+             the bound and, for the resolve, torch.index_select's; kernels
+             B's and C's launch shape per width and point count (points per
+             block, O slices, channel ranges, blocks, shared memory, where
+             the contraction and the projection run) and time over that
+             shape's calls;
   5 model    the entry-size model (2 x 4000 points) on the card against the
              same weights on the CPU, where the plain versions run;
   6 train    the flagship training step (the same batch, AdamW, remat_blocks,
@@ -56,9 +56,12 @@ Phases (any failure exits non-zero, before the last line is printed):
              15 timed forwards per dtype after 2 warm-up, in turns with the
              standard forward of the same dtype, and the forward's own peak
              memory;
- 10 layer    every E call of those forwards replayed against its plain
-             version (f32 within 1e-4, bf16 within 1e-2 of the output's
-             scale, the max-pool shortcut exact); times as in phase 4;
+ 10 layer    E's launch shape per layer shape (as phase 4's, with the
+             per-edge stage's chunk and the split tiles' workspace) and time
+             over that shape's calls; every E call of those forwards
+             replayed against its plain version (f32 within 1e-4, bf16
+             within 1e-2 of the output's scale, the max-pool shortcut
+             exact); times as in phase 4;
  11 flat     phase 3's f32 model with cfg.flat_geom: the flat window resolve
              once per hoisted stage, each call bit-exact against its plain
              version, the logits against the standard forward's at
@@ -129,7 +132,7 @@ SOURCES = {
     "window_resolve": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:369"),
     "pcf_conv_linear": ("pcf_torch/csrc/pcf_conv_linear.cu",
                         "pcf_tpu/ops/pallas/pconv_kernel.py:466"),
-    "pconv_pe_conv_linear": ("pcf_torch/csrc/pconv_fused.cu",
+    "pconv_pe_conv_linear": ("pcf_torch/csrc/pcf_conv_linear.cu",
                              "pcf_tpu/ops/pallas/pconv_kernel.py:498"),
     "window_scatter": ("pcf_torch/csrc/window_scatter.cu", "pcf_tpu/ops/window.py:400"),
     "window_resolve_flat": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:545"),
@@ -363,10 +366,10 @@ def main() -> int:
     from pcf_torch.nn.layers import PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE
     from pcf_torch.ops.kernels import build as kbuild
     from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
-                                                  launch_tile as layer_eval_tile)
+                                                  launch_shape as layer_eval_shape)
     from pcf_torch.ops.kernels.pconv_fused import (
-        launch_shape, launch_tile, pconv_pe_conv_linear, pconv_pe_conv_linear_plain,
-        pcf_conv_linear, pcf_conv_linear_plain)
+        launch_shape, pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
+        pcf_conv_linear_plain)
     from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
                                                       window_resolve_plain,
                                                       windowed_take_flat_plain)
@@ -496,29 +499,26 @@ def main() -> int:
         dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
         for kname, calls in run["calls"].items():
             kern, plain = kernels[kname], plains[kname]
-            if kname == "pcf_conv_linear":
-                shapes = sorted({(a[0].shape[1], a[2].shape[-1], a[3].shape[2], a[3].shape[1],
-                                  a[4].shape[1], a[3].shape[0]) for a in calls})
-                for C, H, W, K, O, M in shapes:
-                    sh = launch_shape(C, K, W, O, M, bf16=dt == torch.bfloat16)
+            if kname != "window_resolve":
+                # B: E is the guidance's heads; C: the PE width P
+                shapes = sorted({(a[0].shape[1], 0 if a[2] is None else a[2].shape[-1],
+                                  a[3].shape[2], a[3].shape[1], a[4].shape[1], a[3].shape[0])
+                                 for a in calls})
+                for C, E, W, K, O, M in shapes:
+                    pe = kname == "pconv_pe_conv_linear"
+                    sh = launch_shape(C, K, W, O, M, bf16=dt == torch.bfloat16,
+                                      P=E if pe else 0)
                     same = [a for a in calls if a[3].shape[0] == M and a[4].shape[1] == O
-                            and a[0].shape[1] == C]
+                            and a[0].shape[1] == C and a[3].shape[2] == W]
                     with torch.no_grad():
                         shape_ms = cuda_ms(lambda: [kern(*a) for a in same])
-                    log(f"[kernels] {kname} {dtype_name} C={C} H={H} W={W} K={K} O={O} M={M}: "
-                        f"{sh['points']} points per block, {sh['o_slices']} O slice(s) of "
-                        f"{sh['o_per_slice']}, {sh['c_splits']} channel range(s), grid "
-                        f"{sh['blocks']} blocks of {sh['threads']} "
-                        f"threads, {sh['smem'] / 1024:.1f} KiB dynamic shared memory, "
-                        f"projection on {sh['projection']}; {len(same)} calls, "
-                        f"{shape_ms:.3f} ms")
-            elif kname == "pconv_pe_conv_linear":
-                widths = sorted({(a[0].shape[1], 0 if a[2] is None else a[2].shape[-1],
-                                  a[3].shape[2], a[3].shape[1]) for a in calls})
-                for C, P, W, K in widths:
-                    mt, smem = launch_tile(C, P, W, K)
-                    log(f"[kernels] {kname} {dtype_name} C={C} P={P} W={W} K={K}: {mt} points "
-                        f"per block, {smem / 1024:.1f} KiB dynamic shared memory")
+                    log(f"[kernels] {kname} {dtype_name} C={C} {'P' if pe else 'H'}={E} W={W} "
+                        f"K={K} O={O} M={M}: {sh['points']} points per block, "
+                        f"{sh['o_slices']} O slice(s) of {sh['o_per_slice']}, "
+                        f"{sh['c_splits']} channel range(s), grid {sh['blocks']} blocks of "
+                        f"{sh['threads']} threads, {sh['smem'] / 1024:.1f} KiB dynamic shared "
+                        f"memory, contraction on {sh['contraction']}, projection on "
+                        f"{sh['projection']}; {len(same)} calls, {shape_ms:.3f} ms")
             # the main path's calls first: the JSON line reports them
             modes = {"window": calls}
             if kname != "window_resolve":
@@ -839,16 +839,24 @@ def main() -> int:
     for dtype_name, run in fused_runs.items():
         dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
         calls = run["calls"]
-        seen = set()
+        shapes = {}
         for args, kw in calls:
-            key = (tuple(args[0].shape), tuple(args[2].nei.shape), args[8].shape,
+            key = (tuple(args[0].shape), tuple(args[2].nei.shape), tuple(args[8].shape),
                    kw.get("strided", False))
-            if key not in seen:
-                seen.add(key)
-                mt, smem = layer_eval_tile(*args, **kw)
-                log(f"[layer] {dtype_name} table {key[0]} edges {key[1]} linear "
-                    f"{tuple(key[2])} strided={key[3]}: {mt} points per block, "
-                    f"{smem / 1024:.1f} KiB dynamic shared memory")
+            shapes.setdefault(key, []).append((args, kw))
+        with torch.no_grad():
+            for key, same in shapes.items():
+                sh = layer_eval_shape(*same[0][0], **same[0][1])
+                shape_ms = cuda_ms(lambda: [fused_layer_eval(*a, **k) for a, k in same])
+                log(f"[layer] {dtype_name} table {key[0]} edges {key[1]} linear {key[2]} "
+                    f"strided={key[3]}: {sh['points']} points per block, {sh['o_slices']} O "
+                    f"slice(s) of {sh['o_per_slice']}, {sh['c_splits']} channel range(s), "
+                    f"grid {sh['blocks']} blocks of {sh['threads']} threads, "
+                    f"{sh['smem'] / 1024:.1f} KiB dynamic shared memory, per-edge stage "
+                    f"{sh['edge_chunk_points']} points at a time, workspace "
+                    f"{sh['workspace'] / 2**20:.2f} MiB; MLPs on {sh['mlps']}, contraction "
+                    f"on {sh['contraction']}, projection on {sh['projection']}; {len(same)} "
+                    f"calls, {shape_ms:.3f} ms")
         err = 0.0
         with torch.no_grad():
             for args, kw in calls:

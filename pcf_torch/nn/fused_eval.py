@@ -12,7 +12,9 @@ kernel E. unary1, guidance_unary, unary2, unary_shortcut, the skip add and
 mlp2 stay outside the kernel.
 
 The folds are kept on the layer between calls, so the path launches no fold
-kernels in steady state. The cache is keyed on every folded tensor's
+kernels in steady state; kernel E's packed form of them
+(layer_eval.packed_weights) is kept on the fold's linear weight in the same
+way, so a steady-state call packs nothing either. The cache is keyed on every folded tensor's
 data_ptr and _version and holds those tensors' storages: an in-place update
 (an optimizer step, a BN running statistic, load_state_dict) bumps _version,
 and a replaced tensor has another address, since the cached storage keeps

@@ -2,10 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc, for
 sm_90a, into its own shared library under `pcf_torch/_build/`, which ctypes
-loads. A library's file name carries a hash of its source and the flags, so
-an edited source is rebuilt at its next use. `build()` starts one nvcc per
-source, all at once, and raises if any of them fails. Nothing here runs when
-the module is imported.
+loads. A library's file name carries a hash of its source, the headers in
+`csrc/` and the flags, so an edited source or header is rebuilt at its next
+use. `build()` starts one nvcc per source, all at once, and raises if any of
+them fails. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("window_resolve", "window_scatter", "pcf_conv_linear", "pconv_fused", "layer_eval")
+SOURCES = ("window_resolve", "window_scatter", "pcf_conv_linear", "layer_eval")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # the sources share headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -22,7 +22,10 @@ Every BatchNorm is folded into its Linear before the call
 The feature table is [N, Cx+Cg+Cs] in the order conv | guidance | shortcut
 and the geometry table [N, 3] or [N, 6] (xyz | normals) f32, as pcf_tpu's.
 The CUDA source, csrc/layer_eval.cu, says what bounds it and how a block
-keeps every per-edge intermediate out of device memory.
+keeps every per-edge intermediate out of device memory. The kernel takes the
+folded weights in its own form (packed_weights: the MLP pairs in one padded
+f32 buffer, L in bf16 for a bf16 table), made once and kept on the linear
+weight until one of the folded tensors changes.
 
 Rounding (both versions), after pcf_tpu's kernel: with an f32 feature table
 every product and sum is f32. With a bf16 table the MLP multiplicands are
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +57,7 @@ from pcf_torch.ops.vi_transform import VI_coordinate_transform
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_LAYERS = 4  # MLP layers per branch in the kernel's descriptor
 _MAX_W = 16      # the kernel's register tile of W partial sums
+_MAX_K = 16      # neighbours whose v a kernel thread holds in registers
 
 
 def _widths(wn, pe, gd, linear_w, *, Cx, use_vi, concat_wni):
@@ -127,27 +132,43 @@ class _Mlp(ctypes.Structure):
 class _Args(ctypes.Structure):
     """csrc/layer_eval.cu's LayerEvalArgs, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "feats", "geo", "window_rows", "localT", "cxyz", "cnorm", "params", "out",
-        "shortcut")] + [(n, ctypes.c_int) for n in (
+        "feats", "geo", "window_rows", "localT", "cxyz", "cnorm", "params", "L", "bias",
+        "out", "shortcut")] + [(n, ctypes.c_int) for n in (
             "n_rows", "Cf", "Gd", "wsz", "mtk", "M", "K", "Cx", "Cg", "Cs", "W", "O",
             "H", "Cpe", "Ct", "lin", "use_vi", "pe_on_vi", "concat_wni", "strided",
-            "bf16", "hmax", "mt")] + [("wn", _Mlp), ("pe", _Mlp), ("gd", _Mlp)]
+            "bf16")] + [("wn", _Mlp), ("pe", _Mlp), ("gd", _Mlp)]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("layer_eval")
-    lib.layer_eval.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.layer_eval.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p, ctypes.c_void_p]
     lib.layer_eval.restype = ctypes.c_int
-    lib.layer_eval_tile.argtypes = [ctypes.POINTER(_Args),
-                                    ctypes.POINTER(ctypes.c_longlong)]
-    lib.layer_eval_tile.restype = ctypes.c_int
+    lib.layer_eval_shape.argtypes = [ctypes.POINTER(_Args), ctypes.POINTER(ctypes.c_longlong)]
+    lib.layer_eval_shape.restype = None
     return lib
 
 
-def _pack(wn, pe, gd, linear_w, linear_b):
-    """Every folded weight in one f32 buffer (MLP pairs first, w row-major
-    then b; the linear last) and the three MLP descriptors."""
+def padded_width(dout: int) -> int:
+    """Columns of a packed MLP layer: dout rounded up to a power of two, at
+    least 4 (csrc/layer_eval.cu's padded_width)."""
+    return max(4, 1 << (dout - 1).bit_length())
+
+
+class Packed(NamedTuple):
+    """Kernel E's form of a layer's folded weights: every MLP pair in one f32
+    buffer (w [din, dp] row-major, then b [dp], dp = padded_width(dout), the
+    padding zero, each at an offset of a multiple of 4 floats; with
+    bf16 features the weights are rounded to bf16 here, once), the three MLP
+    descriptors, the projection's L (the f32 linear weight itself, or its
+    bf16 copy with columns zero-padded to a multiple of 8) and bias."""
+    params: torch.Tensor
+    mlps: tuple
+    L: torch.Tensor
+    bias: torch.Tensor
+
+
+def _pack(wn, pe, gd, linear_w, linear_b, bf16: bool) -> Packed:
     parts, off, mlps = [], 0, []
     for pairs in (wn, pe, gd):
         if len(pairs) > _MAX_LAYERS:
@@ -159,15 +180,44 @@ def _pack(wn, pe, gd, linear_w, linear_b):
                     i and w.shape[0] != pairs[i - 1][0].shape[1]):
                 raise ValueError(f"fused_layer_eval: MLP layer {i} shapes "
                                  f"{tuple(w.shape)}, {tuple(b.shape)} do not chain")
-            d.din[i], d.dout[i] = w.shape
-            d.w[i], d.b[i] = off, off + w.numel()
-            parts += [w.reshape(-1), b]
-            off += w.numel() + b.numel()
+            din, dout = w.shape
+            dp = padded_width(dout)
+            wp = w.new_zeros((din, dp), dtype=torch.float32)
+            wp[:, :dout] = w.to(torch.bfloat16) if bf16 else w
+            bp = b.new_zeros(dp, dtype=torch.float32)
+            bp[:dout] = b
+            d.din[i], d.dout[i] = din, dout
+            d.w[i], d.b[i] = off, off + din * dp
+            parts += [wp.reshape(-1), bp]
+            off += (din + 1) * dp
         mlps.append(d)
-    n_mlp = off
-    parts += [linear_w.reshape(-1), linear_b]
-    params = torch.cat([p.float() for p in parts])
-    return params, n_mlp, mlps
+    params = torch.cat(parts)
+    if bf16:
+        CW, O = linear_w.shape
+        L = linear_w.new_zeros((CW, -(-O // 8) * 8), dtype=torch.bfloat16)
+        L[:, :O] = linear_w
+    else:
+        L = linear_w.float().contiguous()
+    return Packed(params, tuple(mlps), L, linear_b.float().contiguous())
+
+
+def packed_weights(wn, pe, gd, linear_w, linear_b, bf16: bool) -> Packed:
+    """_pack's result, kept on linear_w until any of these tensors changes
+    (_version or data_ptr): the folds nn/fused_eval.py keeps per layer are
+    the same tensors from call to call, so a steady-state call packs
+    nothing. The entry holds the tensors, so a new tensor cannot take a
+    cached one's address."""
+    tensors = (linear_w, linear_b) + tuple(t for pairs in (wn, pe, gd)
+                                           for p in pairs for t in p)
+    key = tuple((t.data_ptr(), t._version) for t in tensors)
+    cache = linear_w.__dict__.setdefault("_pcf_eval_pack", {})
+    hit = cache.get(bf16)
+    if hit is not None and hit[0] == key:
+        return hit[2]
+    with torch.no_grad():
+        value = _pack(wn, pe, gd, linear_w, linear_b, bf16)
+    cache[bf16] = (key, tensors, value)
+    return value
 
 
 def _prepare(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
@@ -212,39 +262,52 @@ def _prepare(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
             f"{tuple(center_xyz.shape)}, window_rows {tuple(edges.window_rows.shape)}, "
             f"localT {tuple(edges.localT.shape)}, M={M}, K={K}, linear_b "
             f"{tuple(linear_b.shape)}")
-    if W > _MAX_W:
-        raise ValueError(f"fused_layer_eval: W={W} exceeds the kernel's {_MAX_W}")
+    if W > _MAX_W or K > _MAX_K:
+        raise ValueError(f"fused_layer_eval: W={W}, K={K}; the kernel takes W <= {_MAX_W} "
+                         f"and K <= {_MAX_K}")
     if gd and (num_heads <= 0 or Cx % num_heads or gd[0][0].shape[0] != Cg + Cpe
                or gd[-1][0].shape[1] != num_heads):
         raise ValueError(f"fused_layer_eval: guidance of {num_heads} heads over "
                          f"Cx={Cx}, query {Cg}+{Cpe} does not fit its MLP")
+    bf16 = feat_table.dtype == torch.bfloat16
     feat_table, geo_table = feat_table.contiguous(), geo_table.contiguous()
     center_xyz = center_xyz.contiguous()
     center_norm = center_norm.contiguous() if use_vi else None
-    params, n_mlp, (mwn, mpe, mgd) = _pack(wn, pe, gd, linear_w, linear_b)
+    pk = packed_weights(wn, pe, gd, linear_w, linear_b, bf16)
+    mwn, mpe, mgd = pk.mlps
     out = torch.empty((M, O), dtype=feat_table.dtype, device=dev)
     short = torch.empty((M, Cs), dtype=feat_table.dtype, device=dev) if strided else None
     a = _Args(
         feats=feat_table.data_ptr(), geo=geo_table.data_ptr(),
         window_rows=edges.window_rows.data_ptr(), localT=edges.localT.data_ptr(),
         cxyz=center_xyz.data_ptr(), cnorm=center_norm.data_ptr() if use_vi else None,
-        params=params.data_ptr(), out=out.data_ptr(),
-        shortcut=short.data_ptr() if strided else None,
+        params=pk.params.data_ptr(), L=pk.L.data_ptr(), bias=pk.bias.data_ptr(),
+        out=out.data_ptr(), shortcut=short.data_ptr() if strided else None,
         n_rows=N, Cf=Cf, Gd=Gd, wsz=Wsz, mtk=MtK, M=M, K=K, Cx=Cx, Cg=Cg, Cs=Cs, W=W,
-        O=O, H=num_heads if gd else 0, Cpe=Cpe, Ct=Ct, lin=n_mlp, use_vi=int(use_vi),
-        pe_on_vi=int(pe_on_vi), concat_wni=int(concat_wni), strided=int(strided),
-        bf16=int(feat_table.dtype == torch.bfloat16), wn=mwn, pe=mpe, gd=mgd)
-    return a, out, short, (feat_table, geo_table, center_xyz, center_norm, params)
+        O=O, H=num_heads if gd else 0, Cpe=Cpe, Ct=Ct, lin=pk.params.numel(),
+        use_vi=int(use_vi), pe_on_vi=int(pe_on_vi), concat_wni=int(concat_wni),
+        strided=int(strided), bf16=int(bf16), wn=mwn, pe=mpe, gd=mgd)
+    return a, out, short, (feat_table, geo_table, center_xyz, center_norm, pk)
 
 
-def launch_tile(*args, **kw) -> tuple[int, int]:
-    """(points per block, dynamic shared memory bytes per block) that kernel
-    E picks for a call with these arguments (those of fused_layer_eval);
-    builds the library if needed."""
-    a = _prepare(*args, **kw)[0]
-    smem = ctypes.c_longlong()
-    mt = _lib().layer_eval_tile(ctypes.byref(a), ctypes.byref(smem))
-    return mt, smem.value
+def _shape(a: _Args) -> list[int]:
+    out = (ctypes.c_longlong * 10)()
+    _lib().layer_eval_shape(ctypes.byref(a), out)
+    return list(out)
+
+
+def launch_shape(*args, **kw) -> dict:
+    """The launch shape kernel E picks for a call with these arguments (those
+    of fused_layer_eval): points per block, O slices and columns per slice,
+    channel-chunk ranges (blocks whose partial outputs meet in an f32
+    workspace), blocks, dynamic shared memory bytes, threads per block,
+    points per chunk of the per-edge stage, workspace bytes, and where the
+    MLPs, contraction and projection run. Builds the library if needed."""
+    sh = _shape(_prepare(*args, **kw)[0])
+    return dict(points=sh[0], o_slices=sh[1], o_per_slice=sh[2], c_splits=sh[3],
+                blocks=sh[4], smem=sh[5], threads=sh[6], edge_chunk_points=sh[8],
+                workspace=sh[9], mlps="CUDA cores", contraction="CUDA cores",
+                projection="mma.sync m16n8k16 bf16" if sh[7] else "CUDA cores f32")
 
 
 def fused_layer_eval(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
@@ -263,7 +326,9 @@ def fused_layer_eval(feat_table, geo_table, edges, center_xyz, center_norm, wn, 
     if feat_table.device.type == "cpu":
         return fused_layer_eval_plain(*args, **kw)
     a, out, short, _ = _prepare(*args, **kw)
-    err = _lib().layer_eval(ctypes.byref(a),
+    nbytes = _shape(a)[9]
+    work = torch.empty(nbytes, dtype=torch.uint8, device=out.device) if nbytes else None
+    err = _lib().layer_eval(ctypes.byref(a), None if work is None else work.data_ptr(),
                             torch.cuda.current_stream(feat_table.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_layer_eval launch failed with CUDA error {err}")

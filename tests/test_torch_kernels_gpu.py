@@ -15,12 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from pcf_torch.ops.kernels.pconv_fused import (launch_shape, launch_tile,
-                                               pconv_pe_conv_linear,
+from pcf_torch.ops.kernels.pconv_fused import (launch_shape, pconv_pe_conv_linear,
                                                pconv_pe_conv_linear_plain,
                                                pcf_conv_linear, pcf_conv_linear_plain)
 from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
-                                              launch_tile as layer_eval_tile)
+                                              launch_shape as layer_eval_shape)
 from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
                                                   window_resolve_plain, windowed_take_flat_plain)
 from pcf_torch.ops.kernels.window_scatter import window_scatter, window_scatter_plain
@@ -113,14 +112,19 @@ def test_launch_tile_of_the_widest_guided_layer(cuda):
     + two L chunks 2*64*256*4. At M=512, bf16: the 8 tiles take 5 ranges
     of 2 channel chunks and 3 O slices of 56 columns (padded to 64): 120
     blocks; rows 4096 + x 64*132*4 + S 64*136*2 + two L chunks 2*128*72*2.
-    Kernel C keeps its tile (C=6, P=12: 16 points)."""
+    Kernel C takes B's tile over Ct = C + P channels: the flagship's
+    PointConv (C=6, P=12, W=16, O=64) at M=40960 in f32, one O slice of 64,
+    640 blocks; rows 4096 + x 64*68*4 + S 64*64*4 + two L chunks 2*64*64*4."""
+    cores = "CUDA cores f32"
     assert launch_shape(80, 16, 16, 160, 40960, bf16=False) == dict(
         points=64, o_slices=1, o_per_slice=160, c_splits=1, blocks=640, smem=168960,
-        threads=256, projection="CUDA cores f32")
+        threads=256, contraction=cores, projection=cores)
     assert launch_shape(80, 16, 16, 160, 512, bf16=True) == dict(
         points=64, o_slices=3, o_per_slice=56, c_splits=5, blocks=120, smem=92160,
-        threads=256, projection="mma.sync m16n8k16 bf16")
-    assert launch_tile(6, 12, 16, 16) == (16, 48128)
+        threads=256, contraction=cores, projection="mma.sync m16n8k16 bf16")
+    assert launch_shape(6, 16, 16, 64, 40960, bf16=False, P=12) == dict(
+        points=64, o_slices=1, o_per_slice=64, c_splits=1, blocks=640, smem=70656,
+        threads=256, contraction=cores, projection=cores)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -317,6 +321,51 @@ def test_fused_kernel_gradients_on_the_card(cuda, guided, windowed):
         torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=1e-4)
 
 
+# kernel C at the flagship's widths and point counts: (C, P, W, O, M) of
+# PointConv, PointConvStridePE and the four PointConvTransposePE layers
+FLAGSHIP_C = [(6, 12, 16, 64, 40960), (16, 16, 16, 32, 40960), (320, 32, 1, 256, 2048),
+              (256, 32, 1, 192, 8192), (192, 32, 1, 128, 16384), (128, 16, 1, 64, 40960)]
+
+
+def _pe_call(cuda, C, P, W, O, Mb, dtype, edges):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    n_rows = max(Mb, 1024)
+    feats = torch.randn(n_rows, C, device=cuda, generator=g).to(dtype)
+    add = torch.randn(Mb, K, P, device=cuda, generator=g).to(dtype)
+    v = torch.randn(Mb, K, W, device=cuda, generator=g).to(dtype)
+    lw = torch.randn((C + P) * W, O, device=cuda, generator=g) / ((C + P) * W) ** 0.5
+    lb = torch.randn(O, device=cuda, generator=g)
+    return feats, edges, add, v, lw, lb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("windowed", [True, False], ids=["window", "nei"])
+@pytest.mark.parametrize("C,P,W,O,Mb", FLAGSHIP_C,
+                         ids=[f"C{c}P{p}W{w}M{m}" for c, p, w, _, m in FLAGSHIP_C])
+def test_pconv_pe_conv_linear_flagship_widths(cuda, C, P, W, O, Mb, windowed, dtype):
+    """Kernel C at every width and point count of the flagship's PE layers,
+    in both index modes and both dtypes."""
+    e = _band_edges(cuda, Mb, max(Mb, 1024), 8)
+    args = _pe_call(cuda, C, P, W, O, Mb, dtype, e if windowed else e.nei)
+    n = pconv_pe_conv_linear.launches
+    got = pconv_pe_conv_linear(*args)
+    assert pconv_pe_conv_linear.launches == n + 1
+    _check(got, pconv_pe_conv_linear_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pconv_pe_conv_linear_partial_tile(cuda, dtype):
+    """Kernel C with M not a multiple of its 64-point tile (plain edges), O
+    not a multiple of 8 and a chunk that straddles the feature and PE
+    columns (C = 6)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    Mp = 4000
+    nei = torch.randint(0, N, (Mp, K), device=cuda, generator=g, dtype=torch.int32)
+    args = _pe_call(cuda, 6, 12, 16, 44, Mp, dtype, nei)
+    args = (torch.randn(N, 6, device=cuda, generator=g).to(dtype),) + args[1:]
+    _check(pconv_pe_conv_linear(*args), pconv_pe_conv_linear_plain(*args), dtype)
+
+
 @pytest.mark.parametrize("C", [3, 6])
 def test_window_resolve_flat_bit_exact(cuda, C):
     """The flat resolve of the stage geometry: [N, C] f32 -> [M, K*C]."""
@@ -392,8 +441,8 @@ def test_fused_layer_eval(cuda, kind, strided, width, dtype):
         assert torch.equal(short, want_short)
     else:
         assert short is None
-    mt, smem = layer_eval_tile(*args, **kw)
-    assert mt in (4, 8, 16) and 0 < smem <= 227 * 1024
+    sh = layer_eval_shape(*args, **kw)
+    assert sh["points"] == 64 and 0 < sh["smem"] <= 227 * 1024
 
 
 def test_fused_layer_eval_refuses_what_it_does_not_take(cuda):
@@ -405,3 +454,108 @@ def test_fused_layer_eval_refuses_what_it_does_not_take(cuda):
         fused_layer_eval(args[0], args[1].double(), *args[2:], **kw)
     with pytest.raises(ValueError):  # heads must divide the channels
         fused_layer_eval(*args, **dict(kw, num_heads=3))
+
+
+# kernel E at every distinct layer width of the flagship fused_eval
+# forward: (kind, Cx, Cg, PE MLP dims, heads, W, O, shortcut width)
+FLAGSHIP_E = {
+    "pointconv": ("pointconv", 6, 0, [], 0, 16, 64, 0),
+    "stride": ("stride", 16, 0, [3, 16, 16], 0, 16, 32, 64),
+    **{f"pcf{cx}": ("pcf", cx, 32, [12, 32], 8, 16, o, cs)
+       for cx, o, cs in ((32, 64, 64), (48, 96, 128), (64, 128, 192), (80, 160, 256))},
+    **{f"transpose{cx}": ("transpose", cx, 0, [3, h, p], 0, 1, o, 0)
+       for cx, h, p, o in ((320, 64, 32, 256), (256, 48, 32, 192), (192, 32, 32, 128),
+                           (128, 16, 16, 64))},
+}
+
+
+def _flagship_layer_call(cuda, spec, strided, dtype, Mb, tile=TILE, window=WIN, seed=0):
+    """(args, kwargs) of one fused_layer_eval call at a flagship width over
+    Mb points: the WeightNet 12-8-8-W, guidance (Cg+Cpe)-8-H, BN folded."""
+    kind, Cx, Cg, pe_dims, H, W, O, Cs = spec
+    Cs = Cs if strided else 0
+    n_rows = max(Mb, 1024)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def pairs(dims):
+        return [(torch.randn(ci, co, device=cuda, generator=g) / ci ** 0.5,
+                 0.1 * torch.randn(co, device=cuda, generator=g))
+                for ci, co in zip(dims, dims[1:])]
+
+    wn, pe = pairs([12, 8, 8, W]), pairs(pe_dims)
+    gd = pairs([Cg + pe_dims[-1], 8, H]) if kind == "pcf" else []
+    Ct = Cx if gd else Cx + (12 if kind == "pointconv" else pe_dims[-1])
+    rng = np.random.default_rng(seed)
+    base = (np.arange(Mb) * max(n_rows - 100, 1) // Mb)[:, None]
+    nei = ((base + rng.integers(0, 100, size=(Mb, K))) % n_rows).astype(np.int32)
+    nei[:, 0] = np.minimum(np.arange(Mb) * n_rows // Mb, n_rows - 1)  # a self edge first
+    edges = build_windows(nei, tile=tile, window=window).to(cuda)
+    nrm = torch.randn(n_rows, 3, device=cuda, generator=g)
+    geo = torch.cat([2 * torch.randn(n_rows, 3, device=cuda, generator=g),
+                     nrm / nrm.norm(dim=1, keepdim=True)], dim=1)
+    cn = torch.randn(Mb, 3, device=cuda, generator=g)
+    args = (torch.randn(n_rows, Cx + Cg + Cs, device=cuda, generator=g).to(dtype), geo, edges,
+            2 * torch.randn(Mb, 3, device=cuda, generator=g),
+            cn / cn.norm(dim=1, keepdim=True), wn, pe, gd,
+            torch.randn(Ct * W, O, device=cuda, generator=g) / (Ct * W) ** 0.5,
+            0.1 * torch.randn(O, device=cuda, generator=g))
+    kw = dict(Cx=Cx, Cg=Cg, Cs=Cs, use_vi=True, pe_on_vi=kind == "pcf",
+              concat_wni=kind == "pointconv", strided=strided, num_heads=H)
+    return args, kw
+
+
+def _check_layer(args, kw, dtype):
+    n = fused_layer_eval.launches
+    with torch.no_grad():
+        got, short = fused_layer_eval(*args, **kw)
+        want, want_short = fused_layer_eval_plain(*args, **kw)
+    assert fused_layer_eval.launches == n + 1 and got.dtype == dtype
+    _check(got.float(), want.float(), dtype)
+    if kw["strided"]:
+        assert torch.equal(short, want_short)
+    else:
+        assert short is None
+    return got
+
+
+FLAGSHIP_E_CASES = [(k, False) for k in FLAGSHIP_E] + [
+    (k, True) for k in FLAGSHIP_E if k.startswith(("pcf", "stride"))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Mb", [512, 2048, 40960])
+@pytest.mark.parametrize("name,strided", FLAGSHIP_E_CASES,
+                         ids=[f"{k}{'-strided' if s else ''}" for k, s in FLAGSHIP_E_CASES])
+def test_fused_layer_eval_flagship_widths(cuda, name, strided, Mb, dtype):
+    """Kernel E at every layer width of the flagship fused_eval forward
+    (PCFLayer and PointConvStridePE plain and strided, PointConv, the
+    transposes), at the coarsest, a middle and the finest point count, f32
+    and bf16, against its plain version; the shortcut exact."""
+    args, kw = _flagship_layer_call(cuda, FLAGSHIP_E[name], strided, dtype, Mb)
+    _check_layer(args, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,strided", [("pcf80", True), ("transpose320", False)])
+def test_fused_layer_eval_partial_tile(cuda, name, strided, dtype):
+    """Kernel E with M = 4000, not a multiple of its 64-point tile (windows
+    of 8 points)."""
+    args, kw = _flagship_layer_call(cuda, FLAGSHIP_E[name], strided, dtype, 4000, tile=8,
+                                    window=128, seed=3)
+    _check_layer(args, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_eval_pack_follows_updates(cuda, dtype):
+    """Kernel E's packed weights and bf16 L are made again after an in-place
+    update of a folded weight (the linear, then a guidance layer)."""
+    args, kw = _flagship_layer_call(cuda, FLAGSHIP_E["pcf48"], False, dtype, 2048, seed=4)
+    before = _check_layer(args, kw, dtype)
+    lw, gd = args[8], args[7]
+    with torch.no_grad():
+        lw.mul_(2.0)
+        after = _check_layer(args, kw, dtype)
+        assert not torch.equal(before, after)
+        gd[0][0].mul_(-1.0)
+        again = _check_layer(args, kw, dtype)
+    assert not torch.equal(after, again)
