@@ -18,11 +18,13 @@ Phases (any failure exits non-zero, before the last line is printed):
              inputs against the kernel's plain PyTorch version: window_resolve
              bit-exact; the fused kernels in both index modes within
              tolerance; times from CUDA events beside the plain version's,
-             the bound and, for the resolve, torch.index_select's; kernels
-             B's and C's launch shape per width and point count (points per
-             block, O slices, channel ranges, blocks, shared memory, where
-             the contraction and the projection run) and time over that
-             shape's calls;
+             the bound and, for the resolve, torch.index_select's; kernel
+             A's launch plan per call shape (table type and width, edges,
+             window; route, unit, lanes per edge, grid, shared memory) with
+             its calls, time and bound; kernels B's and C's launch shape per
+             width and point count (points per block, O slices, channel
+             ranges, blocks, shared memory, where the contraction and the
+             projection run) and time over that shape's calls;
   5 model    the entry-size model (2 x 4000 points) on the card against the
              same weights on the CPU, where the plain versions run;
   6 train    the flagship training step (the same batch, AdamW, remat_blocks,
@@ -31,7 +33,9 @@ Phases (any failure exits non-zero, before the last line is printed):
              must each launch, and D once for every resolve whose table needs
              a gradient, counted in the step's autograd graph), then 2
              warm-up and 10 timed steps per dtype, the dtypes in turns, and
-             the step's own peak memory; every loss must be finite;
+             the step's own peak memory; every loss must be finite; every
+             window_resolve call of the counted step replayed bit-exact
+             against its plain version, and timed beside its bound;
   7 scatter  every window_scatter (kernel D) call of that step, replayed
              against its plain version: f32 within 1e-5 of the output's
              scale, bf16 within one bf16 step; times as in phase 4, beside
@@ -70,7 +74,13 @@ Phases (any failure exits non-zero, before the last line is printed):
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
-and of one train step per dtype to phase 6.
+and of one train step per dtype to phase 6. `--resolve-baseline SOURCE`
+adds to phase 4's window_resolve lines an earlier design of kernel A, built
+from SOURCE (a window_resolve.cu with the C interface of commit fb3ad1e:
+one thread per 16-, 8-, 4- or 2-byte chunk of an edge's row), held
+bit-exact on every call and timed against this one in turns (old, new, new,
+old), beside torch's zero_ of the same outputs (one launch each: the card's
+write rate for the bytes the kernel writes).
 """
 
 import contextlib
@@ -184,7 +194,9 @@ class Recorder:
         setattr(module, name, self)
 
     def __call__(self, *args):
-        self.calls.append(args)
+        # detached: a train step's tables must not keep its graph alive
+        self.calls.append(tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                for a in args))
         return self.fn(*args)
 
     def restore(self):
@@ -331,6 +343,44 @@ def train_step_grads(cfg, batch, device, dtype):
         k: p.grad.cpu().double() for k, p in state.model.named_parameters()}
 
 
+def baseline_resolve(source: str):
+    """fn(table, window_rows, localT) launching the window_resolve kernel
+    built from `source` with the C interface of commit fb3ad1e:
+    window_resolve(table, window_rows, localT, out, long long n_edges,
+    int mtk, int wsz, int n_rows, int row_bytes, int chunk_bytes, stream)."""
+    import ctypes
+    import hashlib
+
+    from pcf_torch.ops.kernels import build
+
+    text = open(source, "rb").read()
+    so = build.BUILD_DIR / f"window_resolve_baseline-{hashlib.sha256(text).hexdigest()[:16]}.so"
+    if not so.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), source],
+                       check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.window_resolve.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+    lib.window_resolve.restype = i
+
+    def resolve(table, wr, lt):
+        T, wsz = wr.shape
+        mtk = lt.shape[-1]
+        out = torch.empty((T, mtk, table.shape[1]), dtype=table.dtype, device=table.device)
+        row_bytes = table.shape[1] * table.element_size()
+        chunk = next(c for c in (16, 8, 4, 2) if row_bytes % c == 0
+                     and table.data_ptr() % c == 0 and out.data_ptr() % c == 0)
+        err = lib.window_resolve(table.data_ptr(), wr.data_ptr(), lt.data_ptr(),
+                                 out.data_ptr(), T * mtk, mtk, wsz, table.shape[0],
+                                 row_bytes, chunk, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline window_resolve failed with CUDA error {err}")
+        return out
+
+    return resolve
+
+
 def graph_scatters(root, windowed_edges_cls) -> int:
     """The window_scatter launches that the backward from `root` must make:
     resolve nodes whose table needs a gradient, plus window-mode fused
@@ -359,6 +409,7 @@ def main() -> int:
         return 1
     import pcf_torch.nn.fused as fused_mod
     import pcf_torch.nn.fused_eval as fused_eval_mod
+    import pcf_torch.ops.kernels.pconv_fused as pconv_mod
     import pcf_torch.ops.kernels.window_resolve as resolve_mod
     import pcf_torch.ops.window as window_mod
     import pcf_torch.parallel.mesh as mesh_mod
@@ -370,7 +421,8 @@ def main() -> int:
     from pcf_torch.ops.kernels.pconv_fused import (
         launch_shape, pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
         pcf_conv_linear_plain)
-    from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
+    from pcf_torch.ops.kernels.window_resolve import (plan_for,
+                                                      window_resolve, window_resolve_flat,
                                                       window_resolve_plain,
                                                       windowed_take_flat_plain)
     from pcf_torch.ops.kernels.window_scatter import (bucket_cap, window_scatter,
@@ -494,12 +546,52 @@ def main() -> int:
         return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
                 tot_b, tot_o)
 
+    baseline = None
+    if "--resolve-baseline" in sys.argv:
+        baseline = baseline_resolve(sys.argv[sys.argv.index("--resolve-baseline") + 1])
+
+    def against_baseline(calls) -> str:
+        """The baseline's and this kernel's ms over `calls`, each the mean
+        of two timings in the order old, new, new, old, and zero_'s."""
+        fns = (lambda: [baseline(*a) for a in calls], lambda: [window_resolve(*a) for a in calls])
+        t = [cuda_ms(fns[k]) for k in (0, 1, 1, 0)]
+        outs = [torch.empty((wr.shape[0], lt.shape[-1], table.shape[1]), dtype=table.dtype,
+                            device=table.device) for table, wr, lt in calls]
+        zero_ms = cuda_ms(lambda: [o.zero_() for o in outs])
+        return (f"; in turns: baseline {(t[0] + t[3]) / 2:.4f} ms, this design "
+                f"{(t[1] + t[2]) / 2:.4f} ms, zero_ {zero_ms:.4f} ms")
+
+    def resolve_shapes(dtype_name, calls):
+        """Kernel A's launch plan, calls, time and bound per call shape."""
+        shapes = {}
+        for a in calls:
+            table, wr, lt = a
+            key = (str(table.dtype).split(".")[-1], table.shape[1], wr.shape[0],
+                   lt.shape[-1], wr.shape[1])
+            shapes.setdefault(key, []).append(a)
+        with torch.no_grad():
+            for (tdt, C, T, MtK, Wsz), same in sorted(shapes.items()):
+                table = same[0][0]
+                row_bytes = C * table.element_size()
+                plan = plan_for(*same[0])
+                shape_ms = cuda_ms(lambda: [window_resolve(*a) for a in same])
+                b_ms = bound("window_resolve", same, table.dtype)[0]
+                log(f"[kernels] window_resolve {dtype_name} table {tdt} C={C} ({row_bytes}-byte "
+                    f"rows) edges {T * MtK} (T={T} x {MtK}) Wsz={Wsz}: {plan['route']} route, "
+                    f"{plan['unit']}-byte units, {plan['lanes']} lanes per edge, grid "
+                    f"{plan['grid']} of {plan['threads']} threads, {plan['edges_per_block']} "
+                    f"edges a block, {plan['smem'] / 1024:.1f} KiB shared memory; "
+                    f"{len(same)} calls, {shape_ms:.4f} ms, bound {b_ms:.4f} ms"
+                    + ("" if baseline is None else against_baseline(same)))
+
     results = {}
     for dtype_name, run in runs.items():
         dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
         for kname, calls in run["calls"].items():
             kern, plain = kernels[kname], plains[kname]
-            if kname != "window_resolve":
+            if kname == "window_resolve":
+                resolve_shapes(dtype_name, calls)
+            else:
                 # B: E is the guidance's heads; C: the PE width P
                 shapes = sorted({(a[0].shape[1], 0 if a[2] is None else a[2].shape[-1],
                                   a[3].shape[2], a[3].shape[1], a[4].shape[1], a[3].shape[0])
@@ -531,6 +623,9 @@ def main() -> int:
                         torch.cuda.synchronize()
                         if kname == "window_resolve":
                             assert torch.equal(got, want), f"{kname} {mode} not bit-exact"
+                            if baseline is not None:
+                                assert torch.equal(baseline(*args), want), (
+                                    "baseline window_resolve not bit-exact")
                             continue
                         diff = (got - want).abs().max().item()
                         err = max(err, diff)
@@ -559,7 +654,9 @@ def main() -> int:
                     f"forward, max abs err {err:.3e}, kernel {ms:.3f} ms, plain "
                     f"{plain_ms:.3f} ms, library "
                     f"{'-' if lib_ms is None else f'{lib_ms:.3f}'} ms, bound {b_ms:.4f} ms "
-                    f"by {b_by} ({tot_b / 1e6:.1f} MB, {tot_o / 1e9:.2f} GOP)")
+                    f"by {b_by} ({tot_b / 1e6:.1f} MB, {tot_o / 1e9:.2f} GOP)"
+                    + ("" if baseline is None or kname != "window_resolve"
+                       else against_baseline(cl)))
     del runs
 
     # ---- 5 model: card against CPU ---------------------------------------
@@ -603,6 +700,10 @@ def main() -> int:
 
                 mesh_mod.cross_entropy_loss = loss_and_graph
                 rec = Recorder(resolve_mod, "window_scatter")
+                # A's callers: the gathers of the forward and of B's and
+                # C's backward
+                recs_a = [Recorder(window_mod, "window_resolve"),
+                          Recorder(pconv_mod, "window_resolve")]
                 torch.cuda.synchronize()
                 for fn in all_kernels.values():
                     fn.launches = 0
@@ -615,6 +716,8 @@ def main() -> int:
             if counted:
                 launches = {k: fn.launches for k, fn in all_kernels.items()}
                 rec.restore()
+                for r in recs_a:
+                    r.restore()
                 mesh_mod.cross_entropy_loss = real_loss
                 for k, n in launches.items():
                     assert n > 0, f"{k} was not launched by the train step"
@@ -623,7 +726,12 @@ def main() -> int:
                     f"step's graph holds {expected[0]} resolves that need a gradient")
                 log(f"[train] {dtype_name}: launches per train step {launches} "
                     f"(window_scatter expected {expected[0]})")
-                train_runs[dtype_name] = dict(launches=launches, calls=rec.calls)
+                resolves = [a for r in recs_a for a in r.calls]
+                assert len(resolves) == launches["window_resolve"], (
+                    f"{len(resolves)} window_resolve calls recorded, "
+                    f"{launches['window_resolve']} launched")
+                train_runs[dtype_name] = dict(launches=launches, calls=rec.calls,
+                                              resolves=resolves)
             losses[dtype_name].append(loss)
             if i >= STEP_WARMUP:
                 step_times[dtype_name].append(ms)
@@ -644,6 +752,19 @@ def main() -> int:
             f"{peak / 2**20:.1f} MiB, of which the step {(peak - resident) / 2**20:.1f} MiB; "
             f"losses {[round(v, 5) for v in losses[dtype_name]]}")
     del states, state, step
+    for dtype_name, run in train_runs.items():
+        calls = run.pop("resolves")
+        with torch.no_grad():
+            for a in calls:
+                assert torch.equal(window_resolve(*a), window_resolve_plain(*a)), (
+                    f"window_resolve {dtype_name} train step: not bit-exact")
+            ms = cuda_ms(lambda: [window_resolve(*a) for a in calls])
+        b_ms, _, tot_b, _ = bound("window_resolve", calls,
+                                  torch.float32 if dtype_name == "float32" else torch.bfloat16)
+        log(f"[train] window_resolve {dtype_name}: {len(calls)} calls per train step, "
+            f"bit-exact, kernel {ms:.3f} ms, bound {b_ms:.4f} ms by bytes "
+            f"({tot_b / 1e6:.1f} MB)")
+    del calls
 
     # ---- 7 scatter: kernel D against its plain version --------------------
     for dtype_name, run in train_runs.items():

@@ -21,6 +21,10 @@ H100 the row-major [T, Mt*K, C] output of kernel A is, byte for byte, the
 flat [M, K*C] array, so it launches kernel A and returns a view, counting
 its launches apart from A's. Like pcf_tpu's, it has no gradient: its output
 is detached, as the stop_gradient at pcf_tpu's call site makes it.
+
+`launch_plan` is the kernel's launch plan, computed on the host from shapes
+alone (route, lanes per edge, edges per block, grid and shared memory), so
+that it can be read and tested without a card.
 """
 
 from __future__ import annotations
@@ -34,6 +38,57 @@ from pcf_torch.ops.kernels import build
 from pcf_torch.ops.kernels.window_scatter import window_scatter
 
 _DTYPES = (torch.float32, torch.bfloat16)
+THREADS = 256
+# a block's rows in shared memory stay within 16 KiB
+MAX_EDGES_PER_BLOCK = 4096
+# the fewest edges a block takes when a small level's tiles are split
+MIN_EDGES_PER_BLOCK = 64
+# two blocks for each of the H100's 132 SMs: a tile is split over blocks
+# only until the grid reaches this
+TARGET_BLOCKS = 2 * 132
+
+
+def launch_plan(T: int, MtK: int, row_bytes: int, align: int) -> dict:
+    """Kernel A's launch for T tiles of MtK edges of `row_bytes`-byte rows
+    from a table whose address is a multiple of `align` (16 at most).
+
+    unit: the largest of 16, 8, 4 and 2 bytes dividing both. Route "wide"
+    (unit 16): `lanes` threads per edge, each copying every lanes-th
+    16-byte vector of the row (at most 32 lanes, balanced over the passes a
+    row wider than 32 vectors takes); "narrow" otherwise: 16-byte chunks of
+    the output, each gathered unit by unit. The grid is (T, blocks a tile);
+    edges_per_block is a multiple of 16, so every block's output starts
+    16-byte aligned when MtK is a multiple of 16; smem holds the block's
+    rows, 4 bytes an edge."""
+    unit = next(u for u in (16, 8, 4, 2, 1) if row_bytes % u == 0 and align % u == 0)
+    if unit == 1:
+        raise ValueError(f"window_resolve: rows of {row_bytes} bytes at alignment "
+                         f"{align} are not whole 2-byte units")
+    route, lanes = "narrow", 0
+    if unit == 16:
+        chunks = row_bytes // 16
+        passes = max(1, -(-chunks // 32))
+        route, lanes = "wide", max(1, -(-chunks // passes))
+    splits = max(-(-MtK // MAX_EDGES_PER_BLOCK),
+                 min(-(-TARGET_BLOCKS // max(T, 1)), -(-MtK // MIN_EDGES_PER_BLOCK)), 1)
+    epb = -(-MtK // splits)
+    epb = max(16, -(-epb // 16) * 16)
+    splits = max(1, -(-MtK // epb))
+    if epb * row_bytes >= 2 ** 31 or splits > 65535:
+        raise ValueError(f"window_resolve: {MtK} edges a tile of {row_bytes}-byte rows "
+                         f"exceed the kernel's 32-bit in-tile offsets")
+    return dict(route=route, unit=unit, lanes=lanes, edges_per_block=epb,
+                grid=(T, splits), threads=THREADS, smem=epb * 4)
+
+
+def plan_for(table: torch.Tensor, window_rows: torch.Tensor, localT: torch.Tensor) -> dict:
+    """launch_plan of one call: its tiles, edges a tile, row bytes and the
+    table's alignment (the largest power of two up to 16 dividing its
+    address)."""
+    ptr = table.data_ptr()
+    return launch_plan(window_rows.shape[0], localT.shape[-1],
+                       table.shape[1] * table.element_size(),
+                       16 if ptr % 16 == 0 else ptr & -ptr)
 
 
 def window_resolve_plain(table: torch.Tensor, window_rows: torch.Tensor,
@@ -50,7 +105,7 @@ def window_resolve_plain(table: torch.Tensor, window_rows: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.load("window_resolve")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.window_resolve.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+    lib.window_resolve.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.window_resolve.restype = i
     return lib
 
@@ -83,13 +138,11 @@ def _launch(table, window_rows, localT):
     MtK = localT.shape[-1]
     N, C = table.shape
     out = torch.empty((T, MtK, C), dtype=table.dtype, device=table.device)
-    row_bytes = C * table.element_size()
-    chunk = next(c for c in (16, 8, 4, 2)
-                 if row_bytes % c == 0 and table.data_ptr() % c == 0
-                 and out.data_ptr() % c == 0)
+    plan = plan_for(table, window_rows, localT)
     err = _lib().window_resolve(
-        table.data_ptr(), window_rows.data_ptr(), localT.data_ptr(),
-        out.data_ptr(), T * MtK, MtK, Wsz, N, row_bytes, chunk,
+        table.data_ptr(), window_rows.data_ptr(), localT.data_ptr(), out.data_ptr(),
+        T, MtK, Wsz, N, C * table.element_size(), plan["route"] == "wide", plan["unit"],
+        plan["lanes"], plan["edges_per_block"], plan["grid"][1],
         torch.cuda.current_stream(table.device).cuda_stream)
     if err:
         raise RuntimeError(f"window_resolve launch failed with CUDA error {err}")

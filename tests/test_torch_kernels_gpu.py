@@ -56,16 +56,58 @@ def _check(got, want, dtype):
         torch.testing.assert_close(got, want, atol=1e-2 * scale, rtol=1e-2)
 
 
+def _one_tile(cuda, seed=0):
+    """A single 128-point tile (T = 1) over a window of 1280 rows, with
+    _edges' out-of-range indices."""
+    rng = np.random.default_rng(seed)
+    nei = (1000 + rng.integers(0, 1200, size=(TILE, K))).astype(np.int32)
+    nei[-1, :2] = [N + 7, -1]
+    return build_windows(nei, tile=TILE, window=1280).to(cuda)
+
+
+# C = 1 and 2 reach 2- and 4-byte rows in bf16; 8 rows of 16 and 32
+# bytes (one and two lanes an edge); 64, 256 and 512 rows wider than one
+# 32-lane group (in f32; 512 in bf16 too)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [3, 6, 32, 96])
-def test_window_resolve_bit_exact(cuda, dtype, C):
-    e = _edges(cuda)
+@pytest.mark.parametrize("C", [1, 2, 3, 6, 8, 32, 64, 96, 256, 512])
+@pytest.mark.parametrize("tiles", ["many", "one"])
+def test_window_resolve_bit_exact(cuda, dtype, C, tiles):
+    e = _edges(cuda) if tiles == "many" else _one_tile(cuda)
     table = torch.randn(N, C, device=cuda).to(dtype)
     n = window_resolve.launches
     got = window_resolve(table, e.window_rows, e.localT)
     assert window_resolve.launches == n + 1
     assert torch.equal(got, window_resolve_plain(table, e.window_rows, e.localT))
-    assert torch.equal(got.reshape(M, K, C), table[e.nei.long().clamp(0, N - 1)])
+    M_ = e.nei.shape[0]
+    assert torch.equal(got.reshape(M_, K, C), table[e.nei.long().clamp(0, N - 1)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [3, 5, 6, 8])
+def test_window_resolve_ragged_tiles(cuda, dtype, C):
+    """Tiles of 98 edges, not a multiple of 4 or 16: blocks whose slots are
+    loaded one by one and whose output starts and ends off a 16-byte
+    boundary; slots and window rows out of range on both sides."""
+    g = torch.Generator().manual_seed(7)
+    T, MtK, Wsz = 3, 98, 64
+    wr = torch.randint(-2, N + 2, (T, Wsz), generator=g, dtype=torch.int32).to(cuda)
+    lt = torch.randint(-1, Wsz + 1, (T, 1, MtK), generator=g, dtype=torch.int32).to(cuda)
+    table = torch.randn(N, C, device=cuda).to(dtype)
+    assert torch.equal(window_resolve(table, wr, lt), window_resolve_plain(table, wr, lt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,offset", [(3, 3), (6, 6), (102, 102), (32, 1), (64, 3), (96, 96)])
+def test_window_resolve_misaligned_table(cuda, dtype, C, offset):
+    """A table that is a view `offset` elements into its storage (one row
+    in where C = offset): an alignment below 16 bytes sends every width to
+    the narrow route in smaller units (a row offset keeps 96-channel rows
+    aligned, and wide), bit-exact all the same."""
+    e = _edges(cuda, 5)
+    table = torch.randn(N * C + offset, device=cuda).to(dtype)[offset:].view(N, C)
+    assert table.data_ptr() % 16 != 0 or C * table.element_size() % 16 == 0
+    got = window_resolve(table, e.window_rows, e.localT)
+    assert torch.equal(got, window_resolve_plain(table, e.window_rows, e.localT))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -367,16 +409,18 @@ def test_pconv_pe_conv_linear_partial_tile(cuda, dtype):
 
 
 @pytest.mark.parametrize("C", [3, 6])
-def test_window_resolve_flat_bit_exact(cuda, C):
+@pytest.mark.parametrize("tiles", ["many", "one"])
+def test_window_resolve_flat_bit_exact(cuda, C, tiles):
     """The flat resolve of the stage geometry: [N, C] f32 -> [M, K*C]."""
-    e = _edges(cuda)
+    e = _edges(cuda) if tiles == "many" else _one_tile(cuda, 1)
+    M_ = e.nei.shape[0]
     table = torch.randn(N, C, device=cuda)
     n, a = window_resolve_flat.launches, window_resolve.launches
     got = window_resolve_flat(table, e.window_rows, e.localT, K)
     assert (window_resolve_flat.launches, window_resolve.launches) == (n + 1, a)
-    assert got.shape == (M, K * C) and not got.requires_grad
+    assert got.shape == (M_, K * C) and not got.requires_grad
     assert torch.equal(got, windowed_take_flat_plain(table, e.window_rows, e.localT, K))
-    assert torch.equal(got.reshape(M, K, C), table[e.nei.long().clamp(0, N - 1)])
+    assert torch.equal(got.reshape(M_, K, C), table[e.nei.long().clamp(0, N - 1)])
 
 
 # widths of kernel E's four layer kinds: (Cx, Cg, PE MLP dims, heads, W, O,
