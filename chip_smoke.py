@@ -70,7 +70,26 @@ Phases (any failure exits non-zero, before the last line is printed):
              once per hoisted stage, each call bit-exact against its plain
              version, the logits against the standard forward's at
              MODEL_TOL, and one timing block, in turns with the standard
-             forward.
+             forward;
+ 12 graphs   the steps as a user calls them on the card, each captured once
+             per bucket signature as a CUDA graph and replayed
+             (parallel/graphs.py). Eval (make_eval_step) on phase 3's models:
+             the standard and fused_eval forwards in f32 and bf16 and the
+             flat_geom forward in f32; each replay's logits against the eager
+             forward's on the same batch (same_as_eager), then a second batch
+             of other scenes packed to the same signature, which must replay
+             the same graph; one profiled replay must show each hand-written
+             kernel by its CUDA symbol as many times as phases 3, 9 and 11
+             counted it; 15 replays after 2 warm-up in turns with the eager
+             forward, the device-busy share of the profiled replay, the
+             capture's time and its pool's memory. Train (entry.build_training):
+             3 captured and 3 eager f32 steps from the same weights, without
+             and with dropout and DropPath (the registered generator): losses
+             within GRAPH_LOSS_RTOL, parameters within phase 8's tolerance;
+             the bf16 L copies and BN folds after replays against a fresh
+             model loaded with the trained weights; per dtype the replay's
+             kernels (phase 6's counts) and 10 steps after 2 warm-up in turns
+             with the eager step. Then `python3 -m pcf_torch.bench`'s line.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -84,9 +103,12 @@ write rate for the bytes the kernel writes).
 """
 
 import contextlib
+import faulthandler
 import functools
+import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -137,6 +159,34 @@ TRAIN_WITNESS = 2.0
 # one affine transform, the tolerance tests/test_fused_eval.py holds between
 # pcf_tpu's two paths of the whole model
 FOLD_TOL = dict(atol=1e-2, rtol=1e-2)
+# phase 12: a replay's logits against the eager forward's, of the logits'
+# scale. B, C and E add the partial outputs of split channel ranges with f32
+# atomics, in another order each run, so two eager forwards differ too; the
+# replay runs the same kernels on the same inputs. f32: two eager forwards
+# differ by up to 4e-7 of the scale on the H100. bf16: a bf16 rounding flips
+# on those last bits, and two eager forwards differ by up to 7e-3 of the
+# scale, about one bf16 step of the largest logit (2^-7); held to four steps.
+GRAPH_REL = {"float32": 1e-5, "bfloat16": 4 * 2 ** -7}
+# phase 12: captured SGD train steps against eager ones, every ReLU and max
+# smooth (phase 8's smooth_kinks: otherwise rounding alone moves a
+# gradient across a kink): each loss relative, and the parameters within
+# phase 8's gradient tolerance
+GRAPH_LOSS_RTOL = 1e-6
+# phase 12: the flagship's AdamW (capturable: the step count, the bias
+# corrections and the LR are device tensors), every ReLU and max smooth. Its
+# first full-rate step moves every weight by about the LR whatever its
+# gradient's size, so an entry whose gradient is zero but for rounding steps
+# either way, in two eager runs alike: the parameters of two runs are not
+# comparable, nor, closely, their later losses. Each loss is held relative,
+# beside the eager step's own spread; the state, which follows the gradient
+# smoothly, is: `step` exactly, exp_avg and sqrt(exp_avg_sq) per parameter
+# within phase 8's gradient tolerance; and the last step's update of every
+# entry against AdamW's formula on the state it left, the LR schedule(2) and
+# step 3, within ADAMW_UPDATE_ATOL of that LR (f32 rounding of the weights is
+# below 1e-4 of it). A counter frozen at 1 or the LR frozen at its capture
+# value would read hundreds of times that (printed, and asserted beyond it)
+ADAMW_LOSS_RTOL = 1e-3
+ADAMW_UPDATE_ATOL = 1e-3
 
 SOURCES = {
     "window_resolve": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:369"),
@@ -332,13 +382,14 @@ def smooth_kinks():
 
 
 def train_step_grads(cfg, batch, device, dtype):
-    """(model, loss, gradients as f64 CPU tensors) of one train step of the
-    seed-1 model in `dtype` on `device`."""
+    """(model, loss, gradients as f64 CPU tensors) of one eager train step of
+    the seed-1 model in `dtype` on `device`."""
     from pcf_torch.entry import build_training
+    from pcf_torch.parallel.mesh import make_eager_train_step
 
-    state, step = build_training(cfg, device=device, seed=1)
+    state, _ = build_training(cfg, device=device, seed=1)
     state.model.to(dtype)
-    state, metrics = step(state, batch.to(device, dtype), 0)
+    state, metrics = make_eager_train_step(cfg)(state, batch.to(device, dtype), 0)
     return state.model, metrics["loss"].item(), {
         k: p.grad.cpu().double() for k, p in state.model.named_parameters()}
 
@@ -395,14 +446,440 @@ def graph_scatters(root, windowed_edges_cls) -> int:
         name = type(node).__name__
         if name == "WindowResolveBackward" and node.needs_input_grad[0]:
             n += 1
-        elif (name == "_FusedConvLinearBackward" and node.needs_input_grad[1]
+        elif (name == "_FusedConvLinearBackward" and node.needs_input_grad[2]
               and isinstance(node.edges, windowed_edges_cls)):
             n += 1
         stack.extend(f for f, _ in node.next_functions)
     return n
 
 
+# the hand-written kernels as a profiler names them (each source keeps its
+# kernels in an anonymous namespace), demangled or not
+_SYMBOL = re.compile(r"(?:\(anonymous namespace\)::|_GLOBAL__N_1\d+)(resolve_wide|"
+                     r"resolve_narrow|conv_linear_kernel|reduce_kernel|layer_eval_kernel)")
+
+
+def symbol_wrapper(name: str):
+    """The wrapper whose kernel a profiler's kernel name is, or None: kernel
+    A's two routes (window_resolve and window_resolve_flat both launch
+    them), B and C (conv_linear_kernel's last template argument: PE), D's
+    reduction (one launch per call), E."""
+    m = _SYMBOL.search(name)
+    if m is None:
+        return None
+    sym = m.group(1)
+    if sym.startswith("resolve_"):
+        return "window_resolve"
+    if sym == "reduce_kernel":
+        return "window_scatter"
+    if sym == "layer_eval_kernel":
+        return "fused_layer_eval"
+    args = re.search(r"conv_linear_kernel<([^>]*)>", name)
+    pe = (args.group(1).split(",")[-1].strip() in ("true", "1", "(bool)1") if args
+          else re.findall(r"Lb([01])E", name)[-1] == "1")
+    return "pconv_pe_conv_linear" if pe else "pcf_conv_linear"
+
+
+def graph_expected(launches: dict) -> dict:
+    """The kernels a replay must show, by wrapper, from an eager run's
+    launch counts (the flat resolve launches kernel A's kernels)."""
+    want = dict(launches)
+    want["window_resolve"] = want.get("window_resolve", 0) + want.pop("window_resolve_flat", 0)
+    return {k: n for k, n in want.items() if n}
+
+
+def replay_profile(fn):
+    """(hand-written kernels by wrapper, device busy ms, wall ms, device
+    kernels) of one fn() under torch.profiler, the second of two profiled
+    calls (the first pays the profiler's start-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    counts = {}
+    for e in dev:
+        w = symbol_wrapper(e.key)
+        if w is not None:
+            counts[w] = counts.get(w, 0) + e.count
+    return (counts, sum(e.self_device_time_total for e in dev) / 1e3, wall,
+            sum(e.count for e in dev))
+
+
+def max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def same_as_eager(label, got, want, again, dtype_name):
+    """A replay's logits against the eager forward's on the same batch,
+    within GRAPH_REL of the scale for the model's compute dtype; `again`, a
+    second eager forward, gives the eager forward's own spread for the log."""
+    scale = want.float().abs().max().item()
+    d = max_diff(got, want)
+    log(f"[graphs] {label}: replay against eager max abs err {d:.3e}; eager against eager "
+        f"{max_diff(again, want):.3e} (logit scale {scale:.3e})")
+    assert d <= GRAPH_REL[dtype_name] * scale, (
+        f"{label}: the replay differs from the eager forward by {d:.3e}")
+
+
+def unstable_calls(model, batch) -> str:
+    """Which calls of kernels B, C and E in one eager forward of `model` give
+    outputs that differ bit for bit between two launches on the same
+    inputs, with their channel ranges (blocks that add into one output with
+    f32 atomics)."""
+    import pcf_torch.nn.fused as fused_mod
+    import pcf_torch.nn.fused_eval as fused_eval_mod
+    from pcf_torch.ops.kernels.layer_eval import launch_shape as layer_eval_shape
+    from pcf_torch.ops.kernels.pconv_fused import launch_shape
+
+    recs = [KwRecorder(fused_mod, "pcf_conv_linear"),
+            KwRecorder(fused_mod, "pconv_pe_conv_linear"),
+            KwRecorder(fused_eval_mod, "fused_layer_eval")]
+    with torch.no_grad():
+        model.eval()
+        model.forward_batch(batch)
+        for r in recs:
+            r.restore()
+        parts = []
+        for r in recs:
+            splits = {}
+            for a, kw in r.calls:
+                if r.name == "fused_layer_eval":
+                    sh, one, two = (layer_eval_shape(*a, **kw), r.fn(*a, **kw)[0],
+                                    r.fn(*a, **kw)[0])
+                else:
+                    M, K, W = a[3].shape
+                    sh = launch_shape(a[0].shape[1], K, W, a[4].shape[1], M,
+                                      bf16=a[0].dtype == torch.bfloat16,
+                                      P=a[2].shape[-1] if r.name == "pconv_pe_conv_linear" else 0)
+                    one, two = r.fn(*a, **kw), r.fn(*a, **kw)
+                n, bad = splits.get(sh["c_splits"], (0, 0))
+                splits[sh["c_splits"]] = (n + 1, bad + (not torch.equal(one, two)))
+            if r.calls:
+                parts.append(f"{r.name} " + ", ".join(
+                    f"{bad} of {n} calls with {c} channel range(s)"
+                    for c, (n, bad) in sorted(splits.items())))
+    return "; ".join(parts)
+
+
+def adamw_state(tx) -> dict:
+    """Each parameter's AdamW state by position: step, exp_avg and
+    sqrt(exp_avg_sq), detached copies."""
+    out = {}
+    for i, p in enumerate(tx.params):
+        st = tx.inner.state[p]
+        out[i] = (st["step"].detach().clone(), st["exp_avg"].detach().clone(),
+                  st["exp_avg_sq"].detach().sqrt())
+    return out
+
+
+def adamw_update_error(tx, before, lr, step) -> float:
+    """max over entries of |p - AdamW(p_before)| / (ADAMW_UPDATE_ATOL * lr):
+    the last update of tx's parameters against torch's fused AdamW formula
+    on the state it left (exp_avg, exp_avg_sq), the LR `lr` and step
+    `step`."""
+    (b1, b2), eps = tx.inner.defaults["betas"], tx.inner.defaults["eps"]
+    bc1, bc2 = 1 - b1 ** step, math.sqrt(1 - b2 ** step)
+    worst = 0.0
+    for p, p0 in zip(tx.params, before):
+        st = tx.inner.state[p]
+        want = p0 * (1 - lr * tx.decay) - (lr / bc1) * st["exp_avg"] / (
+            st["exp_avg_sq"].sqrt() / bc2 + eps)
+        worst = max(worst, (p.detach() - want).abs().max().item())
+    return worst / (ADAMW_UPDATE_ATOL * lr)
+
+
+def graphs_phase(cfg, batch, batch2, models, eager_launches, valid):
+    """Phase 12: the captured eval and train steps on the flagship batch
+    (see the module docstring)."""
+    from pcf_torch.entry import build, build_training
+    from pcf_torch.parallel.mesh import (make_eager_eval_step, make_eager_train_step,
+                                         make_eval_step, step_seed)
+
+    eager_eval = make_eager_eval_step(cfg)
+    eval_steps = {d: make_eval_step(cfg) for d in models}
+    for path, dtype_name in (("standard", "float32"), ("standard", "bfloat16"),
+                             ("fused_eval", "float32"), ("fused_eval", "bfloat16"),
+                             ("flat_geom", "float32")):
+        model, step = models[dtype_name], eval_steps[dtype_name]
+        label = f"{path} {dtype_name}"
+        model.cfg.update(fused_eval=path == "fused_eval", flat_geom=path == "flat_geom")
+        graphs = step.graphs
+        if path != "flat_geom":
+            log(f"[graphs] {label}: launches not bit-stable run to run: "
+                f"{unstable_calls(model, batch)}")
+        want, again = eager_eval(model, batch), eager_eval(model, batch)
+        captures = graphs.captures
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(model, batch)  # the eager run and the capture
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        same_as_eager(f"{label} first batch", step(model, batch), want, again, dtype_name)
+        assert graphs.captures == captures + 1, f"{label}: {graphs.captures - captures} captures"
+        same_as_eager(f"{label} second batch", step(model, batch2), eager_eval(model, batch2),
+                      eager_eval(model, batch2), dtype_name)
+        assert graphs.captures == captures + 1, f"{label}: the second batch was captured anew"
+        counts, busy, wall, n_kernels = replay_profile(lambda: step(model, batch))
+        expected = graph_expected(eager_launches[(path, dtype_name)])
+        log(f"[graphs] {label}: one profiled replay: hand-written kernels {counts} (the eager "
+            f"forward launched {expected}); {n_kernels} device kernels, device busy "
+            f"{busy:.3f} ms of {wall:.3f} ms ({busy / wall:.1%})")
+        assert counts == expected, f"{label}: the replay's kernels {counts} != {expected}"
+        times = timed_in_turns({"replay": lambda: step(model, batch),
+                                "eager": lambda: eager_eval(model, batch)}, FWD_WARMUP, FWD_REPS)
+        entry = list(graphs.entries.values())[-1]
+        log(f"[graphs] {label}: forward ms, {FWD_REPS} reps after {FWD_WARMUP} warm-up in "
+            f"turns: {turns_summary(times, valid)}; first call (eager run and capture) "
+            f"{first_ms:.1f} ms, of which the capture {entry.capture_ms:.1f} ms; pool "
+            f"{entry.pool_bytes / 2**20:.1f} MiB, {entry.live_bytes / 2**20:.1f} MiB live")
+        if path == "fused_eval":
+            # a train-mode forward moves the BN running statistics in place,
+            # which the folds are made from: the graph is captured again
+            before = eager_eval(model, batch)
+            with torch.no_grad():
+                model.train()
+                model.forward_batch(batch2)
+                model.eval()
+            want, again = eager_eval(model, batch), eager_eval(model, batch)
+            captures = graphs.captures
+            step(model, batch)
+            same_as_eager(f"{label} after a train-mode forward", step(model, batch), want,
+                          again, dtype_name)
+            assert graphs.captures == captures + 1, f"{label}: not captured again"
+            witness = max_diff(before, want)
+            log(f"[graphs] {label}: the statistics before that forward would be off by "
+                f"{witness:.3e}")
+            if dtype_name == "float32":
+                assert witness > GRAPH_REL[dtype_name] * want.float().abs().max().item(), (
+                    f"{label}: the train-mode forward moved the logits by only {witness:.3e}")
+    for model in models.values():
+        model.cfg.update(fused_eval=False, flat_geom=False)
+    del want, again
+
+    # the train graph: 3 captured steps against 3 eager ones on copies of one
+    # set of weights (build's seed), f32, beside a second eager copy (the
+    # eager step's own spread): SGD with every ReLU and max smooth, without
+    # and with dropout and DropPath (the registered generator), and the
+    # flagship's AdamW as it is
+    for opt, rate in (("SGD", 0.0), ("SGD", 0.1), ("AdamW", 0.0)):
+        cfg_t = cfg.copy()
+        cfg_t.update(compute_dtype="float32", optimizer=opt, dropout_rate=rate,
+                     drop_path_rate=rate)
+        copies = [build_training(cfg_t.copy(), device="cuda", seed=0) for _ in range(3)]
+        captured, eager_step = copies[0][1], make_eager_train_step(cfg_t)
+        states = [state for state, _ in copies]
+        losses = [[] for _ in states]
+        with smooth_kinks():
+            for i in range(3):
+                if i == 2:  # the weights and LR the last update starts from
+                    before = [[p.detach().clone() for p in st.tx.params] for st in states]
+                    lr = states[0].tx.schedule(states[0].tx.count)
+                for j, state in enumerate(states):
+                    _, m = (captured if j == 0 else eager_step)(state, batch, step_seed(0, i))
+                    losses[j].append(m["loss"].item())
+        assert captured.graphs.captures == 1 and captured.graphs.replays == 2, (
+            captured.graphs.captures, captured.graphs.replays)
+        params = [{k: p.detach() for k, p in state.model.named_parameters()}
+                  for state in states]
+
+        def apart(a, b):
+            rel = max(abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b]))
+            return (rel,) + grad_ratios(params[a], params[b])
+
+        (rel, over, worst, worst_key), (rel_e, over_e, worst_e, _) = apart(0, 1), apart(2, 1)
+        log(f"[graphs] train f32 {opt} smooth, dropout and "
+            f"DropPath {rate}: losses captured {[round(v, 7) for v in losses[0]]}, eager "
+            f"{[round(v, 7) for v in losses[1]]} (max rel {rel:.2e}), eager again max rel "
+            f"{rel_e:.2e}; parameters after 3 steps against the eager step's: captured worst "
+            f"{worst_key} at {worst:.3f} of phase 8's tolerance, {over} beyond it; eager again "
+            f"worst at {worst_e:.3f}, {over_e} beyond it")
+        if opt == "SGD":
+            assert rel <= GRAPH_LOSS_RTOL, f"captured train-step loss differs: {rel:.3e}"
+            assert over == 0, f"parameter {worst_key} differs after 3 captured steps"
+        else:
+            assert rel <= ADAMW_LOSS_RTOL, f"captured AdamW train-step loss differs: {rel:.3e}"
+            adam = [adamw_state(st.tx) for st in states]
+            for j in (0, 1, 2):
+                assert all(torch.equal(t[0], torch.full_like(t[0], 3.0))
+                           for t in adam[j].values()), "an AdamW step count is not 3"
+            reads = {}
+            for part, name in ((1, "exp_avg"), (2, "sqrt(exp_avg_sq)")):
+                pair = [{k: v[part] for k, v in adam[j].items()} for j in (0, 1, 2)]
+                reads[name] = (grad_ratios(pair[0], pair[1]), grad_ratios(pair[2], pair[1]))
+            update = {j: adamw_update_error(states[j].tx, before[j], lr, 3) for j in (0, 1)}
+            faults = {"step frozen at 1": adamw_update_error(states[0].tx, before[0], lr, 1),
+                      "LR frozen at capture": adamw_update_error(
+                          states[0].tx, before[0], states[0].tx.schedule(0), 3)}
+            log(f"[graphs] train f32 AdamW: step 3 in every state; " + "; ".join(
+                f"{k} captured worst at {c[1]:.3f} of phase 8's tolerance ({c[2]}), {c[0]} "
+                f"beyond it, eager again worst {e[1]:.3f}, {e[0]} beyond it"
+                for k, (c, e) in reads.items()) +
+                f"; last update against AdamW's formula (LR {lr:.6g}, step 3): captured "
+                f"{update[0]:.4f}, eager {update[1]:.4f} of ADAMW_UPDATE_ATOL; planted "
+                f"faults would read " + ", ".join(f"{k} {v:.1f}" for k, v in faults.items()))
+            for k, (c, _) in reads.items():
+                assert c[0] == 0, f"captured AdamW {k} of {c[2]} differs from eager"
+            assert max(update.values()) <= 1.0, f"the last AdamW update is off: {update}"
+            assert min(faults.values()) > 1.0, f"a planted fault passes the check: {faults}"
+        del copies, states, captured, eager_step, params
+        gc.collect()  # dropped graphs keep their pools until cyclic garbage goes
+
+    # the derived weights follow replays: a model trained by the captured
+    # step (SGD), its derived weights last made between its eager first step
+    # and two replays, against a fresh model loaded with the trained weights
+    # (and, as a witness, with the weights those derived weights were made
+    # from): f32 through fused_eval (the BN folds), bf16 through the
+    # standard forward (L's bf16 copies, each also held to the rounding of
+    # the trained weight, bit for bit)
+    for dtype_name, path in (("float32", "fused_eval"), ("bfloat16", "standard")):
+        cfg_c = cfg.copy()
+        cfg_c.update(compute_dtype=dtype_name, optimizer="SGD",
+                     fused_eval=path == "fused_eval")
+        state, captured = build_training(cfg_c, device="cuda", seed=0)
+        model, step = state.model, make_eval_step(cfg_c)
+        captured(state, batch, step_seed(1, 0))
+        step(model, batch)
+        stale = {k: v.clone() for k, v in model.state_dict().items()}
+        for i in (1, 2):
+            captured(state, batch, step_seed(1, i))
+        assert captured.graphs.replays == 2, captured.graphs.replays
+        fresh = build(cfg_c.copy(), device="cuda", seed=1)
+        fresh.load_state_dict(model.state_dict())
+        want, again = eager_eval(fresh, batch), eager_eval(fresh, batch)
+        for k in ("recaptured", "replayed"):
+            same_as_eager(f"{path} {dtype_name} after 2 train replays, {k}",
+                          step(model, batch), want, again, dtype_name)
+        fresh.load_state_dict(stale)
+        witness = max_diff(eager_eval(fresh, batch), want)
+        log(f"[graphs] {path} {dtype_name}: the weights before the replays would be off by "
+            f"{witness:.3e}")
+        assert witness > GRAPH_REL[dtype_name] * want.float().abs().max().item(), (
+            f"{path} {dtype_name}: the replays moved the logits by only {witness:.3e}")
+        if dtype_name == "bfloat16":
+            n = 0
+            for mod in model.modules():
+                hit = getattr(mod, "weight", None) is not None and \
+                    mod.weight.__dict__.get("_pcf_bf16")
+                if hit:
+                    lw = mod.weight
+                    assert torch.equal(hit[1][:, :lw.shape[1]], lw.detach().bfloat16()), (
+                        "a bf16 copy of L does not follow the train replays")
+                    n += 1
+            assert n > 0, "no bf16 copy of L was made"
+            log(f"[graphs] bfloat16: {n} bf16 copies of L equal the trained weights' rounding")
+            from pcf_torch.ops.kernels.pconv_fused import _bf16_weight
+
+            lws = [mod.weight for mod in model.modules()
+                   if getattr(mod, "weight", None) is not None
+                   and "_pcf_bf16" in mod.weight.__dict__]
+            cast_ms = cuda_ms(lambda: [_bf16_weight(lw, False) for lw in lws])
+            log(f"[graphs] bfloat16: rounding every L afresh instead of keeping its copy "
+                f"would take {cast_ms:.4f} ms of device time per forward ({len(lws)} casts)")
+        del state, captured, model, step, fresh, stale, want, again
+        gc.collect()
+
+    # the train graphs' kernels and times, f32 and bf16: a captured and an
+    # eager step on two models, in turns
+    for dtype_name in ("float32", "bfloat16"):
+        cfg_d = cfg.copy()
+        cfg_d.compute_dtype = dtype_name
+        (sa, captured), (sb, _) = (build_training(cfg_d, device="cuda", seed=0),
+                                   build_training(cfg_d.copy(), device="cuda", seed=0))
+        eager_step = make_eager_train_step(cfg_d)
+        seeds = iter(range(10 ** 6))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        captured(sa, batch, next(seeds))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        counts, busy, wall, n_kernels = replay_profile(lambda: captured(sa, batch, next(seeds)))
+        expected = graph_expected(eager_launches[("train", dtype_name)])
+        log(f"[graphs] train {dtype_name}: one profiled replay: hand-written kernels {counts} "
+            f"(the eager step launched {expected}); {n_kernels} device kernels, device busy "
+            f"{busy:.3f} ms of {wall:.3f} ms ({busy / wall:.1%})")
+        assert counts == expected, f"train {dtype_name}: the replay's kernels {counts}"
+        times = timed_in_turns({"replay": lambda: captured(sa, batch, next(seeds)),
+                                "eager": lambda: eager_step(sb, batch, next(seeds))},
+                               STEP_WARMUP, STEP_REPS)
+        entry = list(captured.graphs.entries.values())[-1]
+        log(f"[graphs] train {dtype_name}: step ms, {STEP_REPS} steps after {STEP_WARMUP} "
+            f"warm-up in turns: {turns_summary(times, valid)}; first call (eager step and "
+            f"capture) {first_ms:.1f} ms, of which the capture {entry.capture_ms:.1f} ms; "
+            f"pool {entry.pool_bytes / 2**20:.1f} MiB, {entry.live_bytes / 2**20:.1f} MiB live")
+        del sa, sb, captured, eager_step
+        gc.collect()
+
+
+def bench_phase():
+    """Phase 12's bench: pcf_torch.bench's model, batch and captured eval
+    step (bf16; the contraction in ops/pconv.py, kernel A resolving the
+    feature tables), checked before bench.run times it: the launch counts of
+    one eager forward, counted from 0 (kernel A, and nothing else, must
+    launch); each of its window_resolve calls replayed bit-exact against its
+    plain version; the first call (eager run and capture) and a replay
+    against the eager forward (same_as_eager); the replay's hand-written
+    kernels by symbol, as many as the eager forward launched."""
+    import pcf_torch.ops.window as window_mod
+    from pcf_torch import bench
+    from pcf_torch.ops.kernels.layer_eval import fused_layer_eval
+    from pcf_torch.ops.kernels.pconv_fused import pconv_pe_conv_linear, pcf_conv_linear
+    from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
+                                                      window_resolve_plain)
+    from pcf_torch.ops.kernels.window_scatter import window_scatter
+    from pcf_torch.parallel.mesh import make_eager_eval_step
+
+    model, step, batch = bench.workload()
+    eager = make_eager_eval_step(model.cfg)
+    wrappers = {"window_resolve": window_resolve, "pcf_conv_linear": pcf_conv_linear,
+                "pconv_pe_conv_linear": pconv_pe_conv_linear,
+                "window_scatter": window_scatter, "window_resolve_flat": window_resolve_flat,
+                "fused_layer_eval": fused_layer_eval}
+    rec = Recorder(window_mod, "window_resolve")
+    for fn in wrappers.values():
+        fn.launches = 0
+    want = eager(model, batch)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    rec.restore()
+    log(f"[bench] launches in one eager forward of the bench's model: {launches}")
+    assert launches["window_resolve"] == len(rec.calls) > 0, launches
+    assert sum(launches.values()) == launches["window_resolve"], launches
+    assert want.shape == (batch.points[0].shape[0], model.cfg.num_classes), want.shape
+    assert torch.isfinite(want[batch.masks[0]]).all(), "non-finite bench logits"
+    with torch.no_grad():
+        for args in rec.calls:
+            assert torch.equal(window_resolve(*args), window_resolve_plain(*args)), (
+                f"bench window_resolve differs from its plain version at table "
+                f"{tuple(args[0].shape)} {args[0].dtype}")
+    log(f"[bench] {len(rec.calls)} window_resolve calls bit-exact against the plain "
+        f"version, tables {sorted({(a[0].shape[1], str(a[0].dtype)) for a in rec.calls})}")
+    del rec
+    again = eager(model, batch)
+    same_as_eager("bench first call (eager run and capture)", step(model, batch), want,
+                  again, "bfloat16")
+    same_as_eager("bench replay", step(model, batch), want, again, "bfloat16")
+    assert step.graphs.captures == 1 and step.graphs.replays == 1, (
+        step.graphs.captures, step.graphs.replays)
+    counts, busy, wall, n_kernels = replay_profile(lambda: step(model, batch))
+    expected = graph_expected(launches)
+    log(f"[bench] one profiled replay: hand-written kernels {counts} (the eager forward "
+        f"launched {expected}); {n_kernels} device kernels, device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms ({busy / wall:.1%})")
+    assert counts == expected, f"bench: the replay's kernels {counts} != {expected}"
+    captures = step.graphs.captures
+    bench.run(model, step, batch)
+    assert step.graphs.captures == captures, "the bench captured its step anew"
+
+
 def main() -> int:
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
@@ -428,6 +905,7 @@ def main() -> int:
     from pcf_torch.ops.kernels.window_scatter import (bucket_cap, window_scatter,
                                                       window_scatter_inverse, window_scatter_plain)
     from pcf_torch.ops.window import WindowedEdges
+    from pcf_torch.parallel.mesh import make_eager_train_step
     from pcf_torch.train.loss import cross_entropy_loss
 
     t_start = time.time()
@@ -463,6 +941,7 @@ def main() -> int:
     cfg.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas")
     valid = int(batch.masks[0].sum())
     runs, models = {}, {}
+    eager_launches = {}  # eager launch counts per path and dtype, for phase 12
     for dtype_name in ("float32", "bfloat16"):
         cfg_d = cfg.copy()
         cfg_d.compute_dtype = dtype_name
@@ -488,6 +967,7 @@ def main() -> int:
             assert n > 0, f"{k} was not launched on the main path"
         log(f"[slice] {dtype_name}: launches per eval forward {launches}")
         runs[dtype_name] = dict(launches=launches, calls={r.name: r.calls for r in recs})
+        eager_launches[("standard", dtype_name)] = launches
         models[dtype_name] = model
         del logits
 
@@ -660,23 +1140,27 @@ def main() -> int:
     del runs
 
     # ---- 5 model: card against CPU ---------------------------------------
+    # phase 3's configuration, and pcf_torch.bench's (the contraction in
+    # ops/pconv.py, kernel A its only kernel)
     cfg_s, batch_s = flagship_batch(level0_points=4000, bucket=1024, window_gather=True,
                                     device="cuda")
-    cfg_s.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas")
-    gpu_model = build(cfg_s, device="cuda", seed=1)
-    with torch.no_grad():
-        gpu_model.train()
-        gpu_model.forward_batch(batch_s)
-        gpu_model.eval()
-        got = gpu_model.forward_batch(batch_s).cpu()
-        cpu_model = build(cfg_s, device="cpu", seed=1)
-        cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
-        want = cpu_model.forward_batch(batch_s.to("cpu"))
     m = batch_s.masks[0].cpu()
-    err = (got[m] - want[m]).abs().max().item()
-    log(f"[model] entry size, f32, card vs CPU plain: max abs err {err:.3e} "
-        f"(logit scale {want[m].abs().max().item():.3e})")
-    assert torch.allclose(got[m], want[m], **MODEL_TOL), f"model logits differ: {err:.3e}"
+    cfg_bench = cfg_s.copy()
+    cfg_s.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas")
+    for label, cfg_m in (("", cfg_s), (", bench configuration", cfg_bench)):
+        gpu_model = build(cfg_m, device="cuda", seed=1)
+        with torch.no_grad():
+            gpu_model.train()
+            gpu_model.forward_batch(batch_s)
+            gpu_model.eval()
+            got = gpu_model.forward_batch(batch_s).cpu()
+            cpu_model = build(cfg_m, device="cpu", seed=1)
+            cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
+            want = cpu_model.forward_batch(batch_s.to("cpu"))
+        err = (got[m] - want[m]).abs().max().item()
+        log(f"[model] entry size, f32{label}, card vs CPU plain: max abs err {err:.3e} "
+            f"(logit scale {want[m].abs().max().item():.3e})")
+        assert torch.allclose(got[m], want[m], **MODEL_TOL), f"model logits differ: {err:.3e}"
 
     # ---- 6 train ---------------------------------------------------------
     all_kernels = dict(kernels, window_scatter=window_scatter)
@@ -684,7 +1168,10 @@ def main() -> int:
     for dtype_name in ("float32", "bfloat16"):
         cfg_d = cfg.copy()
         cfg_d.compute_dtype = dtype_name
-        states[dtype_name] = build_training(cfg_d, device="cuda", seed=0)
+        # the eager body: its launches are counted, and its times stay
+        # comparable with earlier runs; phase 12 times the captured step
+        states[dtype_name] = (build_training(cfg_d, device="cuda", seed=0)[0],
+                              make_eager_train_step(cfg_d))
     step_times = {d: [] for d in states}
     losses = {d: [] for d in states}
     for i in range(STEP_WARMUP + STEP_REPS):
@@ -730,6 +1217,7 @@ def main() -> int:
                 assert len(resolves) == launches["window_resolve"], (
                     f"{len(resolves)} window_resolve calls recorded, "
                     f"{launches['window_resolve']} launched")
+                eager_launches[("train", dtype_name)] = launches
                 train_runs[dtype_name] = dict(launches=launches, calls=rec.calls,
                                               resolves=resolves)
             losses[dtype_name].append(loss)
@@ -919,6 +1407,7 @@ def main() -> int:
             assert torch.allclose(logits[m0], standard[m0], **FOLD_TOL), (
                 f"fused_eval logits differ from the standard forward: {diff:.3e}")
         fused_runs[dtype_name] = dict(launches=launches, calls=rec.calls)
+        eager_launches[("fused_eval", dtype_name)] = launches
         del logits, standard
 
     cfg_f = cfg_s.copy()
@@ -1036,6 +1525,7 @@ def main() -> int:
         log(f"[flat] float32: launches per flat_geom forward {launches} ({n_stages} hoisted "
             f"stages); logits against the standard forward: max abs err {diff:.3e}")
         assert launches["window_resolve_flat"] == n_stages, launches
+        eager_launches[("flat_geom", "float32")] = launches
         assert torch.allclose(logits[m0], standard[m0], **MODEL_TOL), (
             f"flat_geom logits differ from the standard forward: {diff:.3e}")
         for args in rec.calls:
@@ -1070,7 +1560,16 @@ def main() -> int:
     log(f"[flat] float32: forward ms, {FWD_REPS} reps after {FWD_WARMUP} warm-up in turns: "
         f"{turns_summary(ts, valid)}; flat_geom forward peak memory "
         f"{(peak - resident) / 2**20:.1f} MiB above resident")
-    del models, model, logits, standard, rec
+    del model, logits, standard, rec
+
+    # ---- 12 graphs: the captured steps ------------------------------------
+    _, batch2 = flagship_batch(level0_points=20000, bucket=4096, n_scenes=2,
+                               window_gather=True, device="cuda", seed=2,
+                               level_caps=[p.shape[0] for p in batch.points])
+    assert batch2.signature() == batch.signature()
+    graphs_phase(cfg, batch, batch2, models, eager_launches, valid)
+    del models, batch2
+    bench_phase()
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

@@ -39,18 +39,58 @@ class PackedPyramid:
     edges_forward: tuple
     edges_propagate: tuple
 
+    def _map(self, fn) -> "PackedPyramid":
+        """The batch with fn applied to every tensor, structure kept."""
+        def walk(x):
+            if isinstance(x, tuple):
+                return tuple(walk(v) for v in x)
+            if isinstance(x, WindowedEdges):
+                return WindowedEdges(fn(x.nei), fn(x.window_rows), fn(x.localT))
+            return fn(x)
+
+        return PackedPyramid(**{f.name: walk(getattr(self, f.name)) for f in fields(self)})
+
     def to(self, device, dtype: torch.dtype | None = None) -> "PackedPyramid":
         """The batch on `device`; with `dtype`, its floating-point arrays
         (features, points, normals) cast to it."""
-        def move(x):
-            if isinstance(x, tuple):
-                return tuple(move(v) for v in x)
-            if dtype is not None and isinstance(x, torch.Tensor) and x.is_floating_point():
-                return x.to(device, dtype)
-            return x.to(device)
+        return self._map(lambda x: x.to(device, dtype)
+                         if dtype is not None and x.is_floating_point() else x.to(device))
 
-        return PackedPyramid(**{f.name: move(getattr(self, f.name))
-                                for f in fields(self)})
+    def clone(self) -> "PackedPyramid":
+        return self._map(torch.clone)
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the batch, in field order (a WindowedEdges gives
+        nei, window_rows, localT)."""
+        out = []
+        self._map(lambda t: out.append(t) or t)
+        return out
+
+    def signature(self) -> tuple:
+        """The key of a compiled step for this batch: the structure (levels,
+        plain or windowed edges) and every tensor's shape and dtype, each
+        WindowedEdges' window_rows [T, Wsz] and localT [T, 1, Mt*K] among
+        them. It is what pcf_tpu's jax.jit of a step keys its cache on for
+        the batch, a pytree without static fields: finer than the bucket's
+        level caps (pcf_tpu/serve/export.py:67), since a new window size
+        traces anew as well."""
+        def sig(x):
+            if isinstance(x, tuple):
+                return tuple(sig(v) for v in x)
+            if isinstance(x, WindowedEdges):
+                return ("windowed", sig(x.nei), sig(x.window_rows), sig(x.localT))
+            return (tuple(x.shape), x.dtype)
+
+        return tuple(sig(getattr(self, f.name)) for f in fields(self))
+
+    def copy_(self, other: "PackedPyramid") -> "PackedPyramid":
+        """Copy `other`, a batch of the same signature on any device, into
+        this batch's tensors in place; raise on another signature."""
+        if other.signature() != self.signature():
+            raise ValueError("copy_: the batches differ in signature (structure, shape or dtype)")
+        for dst, src in zip(self.tensors(), other.tensors()):
+            dst.copy_(src, non_blocking=True)
+        return self
 
 
 def round_up(n: int, multiple: int) -> int:

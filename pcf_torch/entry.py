@@ -3,9 +3,11 @@
 `flagship_batch` ports __graft_entry__._flagship: packed synthetic scenes at
 the PCF_Normal grid (5 levels, 8 heads, resblocks [0,2,4,6,6], mid_dim 16,
 USE_PE) with its config. `build` makes a model from a config with weights
-drawn from a seeded generator, and `build_training` that model with its
-optimizer and the single-device train step. With device=None they use "cuda"
-and raise when CUDA is absent; pass device="cpu" to run on the CPU.
+drawn from a seeded generator, `build_training` that model with its
+optimizer and the single-device train step, and `build_eval` that model with
+the eval step. On the card both steps are captured once per bucket signature
+as CUDA graphs and replayed (parallel/graphs.py). With device=None they use
+"cuda" and raise when CUDA is absent; pass device="cpu" to run on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item, synthetic_scene
 from pcf_torch.models import PointConvFormer_Segmentation
 from pcf_torch.nn.init import init_params
-from pcf_torch.parallel.mesh import make_train_step
+from pcf_torch.parallel.mesh import make_eval_step, make_train_step
 from pcf_torch.train.state import create_train_state, make_optimizer
 
 
@@ -33,20 +35,23 @@ def resolve_device(device=None) -> torch.device:
 
 def flagship_batch(level0_points: int, bucket: int, num_levels: int = 5,
                    n_scenes: int = 2, base_dim: int = 64,
-                   window_gather: bool = False, device=None):
-    """(cfg, batch): the flagship config and a packed batch on `device`.
+                   window_gather: bool = False, device=None, seed: int = 0,
+                   level_caps=None):
+    """(cfg, batch): the flagship config and a packed batch on `device`, of
+    the scenes seeded seed, seed + 1, ...; `level_caps` packs them to the
+    caps of another batch (the same signature, for a compiled step).
 
     Window sizes (self, forward, propagate) = (512, 1280, 384) are pinned to
     this synthetic workload's per-tile unique maxima plus margin."""
     device = resolve_device(device)
     grid = [0.1 * (2 ** i) for i in range(num_levels)]
     scenes = []
-    for i in range(n_scenes):
+    for i in range(seed, seed + n_scenes):
         coord, norm, feats, labels = synthetic_scene(level0_points, extent=6.0, seed=i)
         scenes.append(scene_to_item(coord, norm, feats, labels, grid, 16, 16, 16,
                                     rng=np.random.default_rng(i),
                                     morton=window_gather))
-    batch = pack_scenes(scenes, bucket_multiple=bucket,
+    batch = pack_scenes(scenes, level_caps=level_caps, bucket_multiple=bucket,
                         window_tile=128 if window_gather else None,
                         window_sizes=(512, 1280, 384))
     cfg = get_default_configs(Config(), num_level=num_levels, base_dim=base_dim)
@@ -72,7 +77,14 @@ def build(cfg, device=None, seed: int = 0) -> PointConvFormer_Segmentation:
 def build_training(cfg, device=None, seed: int = 0):
     """(state, step): the model of `build` with cfg's optimizer in a
     TrainState (its schedule counting one step per epoch), and the
-    single-device train step, step(state, batch, seed) -> (state, metrics)."""
+    single-device train step, step(state, batch, seed) -> (state, metrics),
+    captured per bucket signature on the card."""
     tx, _ = make_optimizer(cfg)
     state = create_train_state(build(cfg, device, seed), tx)
     return state, make_train_step(cfg)
+
+
+def build_eval(cfg, device=None, seed: int = 0):
+    """(model, eval_step): the model of `build` and the eval step,
+    eval_step(model, batch) -> logits."""
+    return build(cfg, device, seed), make_eval_step(cfg)

@@ -14,12 +14,14 @@ mlp2 stay outside the kernel.
 The folds are kept on the layer between calls, so the path launches no fold
 kernels in steady state; kernel E's packed form of them
 (layer_eval.packed_weights) is kept on the fold's linear weight in the same
-way, so a steady-state call packs nothing either. The cache is keyed on every folded tensor's
-data_ptr and _version and holds those tensors' storages: an in-place update
-(an optimizer step, a BN running statistic, load_state_dict) bumps _version,
-and a replaced tensor has another address, since the cached storage keeps
-its old one taken. Either folds again. (A change made through `.data`
-bypasses _version; nothing in pcf_torch makes one.)
+way, so a steady-state call packs nothing either. The cache
+(ops/kernels/derived.cached) is keyed on every folded tensor's data_ptr and
+_version, and holds those tensors' storages: an in-place update (a BN running
+statistic, load_state_dict) bumps _version, a train step (eager or replayed)
+bumps it through derived.weights_written, and a replaced tensor has another
+address, since the cached storage keeps its old one taken. Each folds
+again. (A change made through `.data` bypasses _version; nothing in
+pcf_torch makes one.)
 
 A layer's `linear` may be a LinearBN or a FusedConvLinear (USE_PALLAS_KERNEL);
 both fold. pcf_tpu's fold reads only the LinearBN layout.
@@ -30,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from pcf_torch.nn.fused import FusedConvLinear
+from pcf_torch.ops.kernels.derived import cached
 from pcf_torch.ops.kernels.layer_eval import fused_layer_eval
 from pcf_torch.ops.window import WindowedEdges
 
@@ -84,15 +87,7 @@ def _folded(layer, names, fold):
     tensor of theirs changes (see the module docstring)."""
     tensors = [t for n in names for m in (getattr(layer, n),)
                for t in (*m.parameters(), *m.buffers())]
-    key = [(t.data_ptr(), t._version) for t in tensors]
-    hit = layer.__dict__.get("_fused_eval_folds")
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    with torch.no_grad():
-        value = fold()
-    layer.__dict__["_fused_eval_folds"] = (key, value,
-                                           [t.untyped_storage() for t in tensors])
-    return value
+    return cached(layer.__dict__, "_fused_eval_folds", tensors, fold)
 
 
 def _geo_table(xyz, norms, use_vi):

@@ -28,6 +28,8 @@ random state.
 
 from __future__ import annotations
 
+import contextvars
+from contextlib import contextmanager
 from typing import Sequence
 
 import torch
@@ -75,11 +77,37 @@ def set_generator(model: nn.Module, generator: torch.Generator | None) -> None:
             m.generator = generator
 
 
-def _uniform(x, shape, generator):
+_DRAWS: contextvars.ContextVar = contextvars.ContextVar("pcf_torch_draws", default=None)
+
+
+@contextmanager
+def kept_draws(draws: list, replay: bool):
+    """Inside, every keep mask that dropout and DropPath draw is appended to
+    `draws` (replay=False), or taken from its front instead of drawn
+    (replay=True): the remat recompute of a block (nn/resstack.py) sees the
+    masks its forward drew without rewinding the generator, whose state a
+    CUDA graph capture cannot read. In this thread only: autograd runs a
+    recompute in its own."""
+    token = _DRAWS.set((draws, replay))
+    try:
+        yield
+    finally:
+        _DRAWS.reset(token)
+
+
+def _keep(x, shape, generator, keep: float) -> torch.Tensor:
+    """A bool mask of `shape`, each element True with probability `keep`,
+    from torch.rand on the generator (or the recorded draw, see kept_draws)."""
+    draws = _DRAWS.get()
+    if draws is not None and draws[1]:
+        return draws[0].pop(0)
     if generator is None:
         raise RuntimeError("dropout and DropPath in training draw from an explicit "
                            "torch.Generator: set one with nn.layers.set_generator")
-    return torch.rand(shape, generator=generator, device=x.device)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if draws is not None:
+        draws[0].append(mask)
+    return mask
 
 
 def dropout(x, rate: float, training: bool, generator):
@@ -88,8 +116,7 @@ def dropout(x, rate: float, training: bool, generator):
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    return torch.where(_uniform(x, x.shape, generator) < keep, x / keep,
-                       torch.zeros_like(x))
+    return torch.where(_keep(x, x.shape, generator, keep), x / keep, torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
@@ -106,7 +133,7 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        return torch.where(_uniform(x, (), self.generator) < keep, x / keep,
+        return torch.where(_keep(x, (), self.generator, keep), x / keep,
                            torch.zeros_like(x))
 
 

@@ -70,7 +70,7 @@ class MaskedBatchNorm(nn.Module):
         else:
             xf = x.to(acc).reshape(-1, self.features)
             if mask is None:
-                cnt = torch.tensor(float(xf.shape[0]), device=x.device)
+                cnt = torch.full((), float(xf.shape[0]), device=x.device)  # no host copy: capturable
                 s, s2 = xf.sum(0), (xf * xf).sum(0)
             else:
                 m = mask.to(acc).reshape(mask.shape + (1,) * (x.dim() - mask.dim()))

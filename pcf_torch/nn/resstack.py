@@ -11,49 +11,42 @@ backward instead of keeping its intermediates (pcf_tpu's nn.remat), with
 torch.utils.checkpoint. flax's remat is functional and moves the BatchNorm
 running statistics once per step; checkpoint runs the block's forward a
 second time, so its recompute context leaves them alone and replays the
-forward's random draws (_recompute).
+forward's random draws, the keep masks recorded as the forward drew them
+(_recompute).
 """
 
 from __future__ import annotations
 
-import functools
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from typing import Sequence
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pcf_torch.nn.layers import PCFLayer
+from pcf_torch.nn.layers import PCFLayer, kept_draws
 from pcf_torch.nn.norm import frozen_running_stats
 
 
 @contextmanager
-def _recompute(block: nn.Module, gen_state):
-    """checkpoint's recompute of `block` in the backward: its random draws
-    replay the forward's (the generator back at `gen_state`), and the BN
+def _recompute(draws: list):
+    """checkpoint's recompute of a block in the backward: its dropout and
+    DropPath masks are the ones its forward drew (`draws`), and the BN
     running statistics stay as they are."""
-    gen = block.generator
-    saved = None if gen is None else gen.get_state()
-    if gen is not None:
-        gen.set_state(gen_state)
-    try:
-        with frozen_running_stats():
-            yield
-    finally:
-        if gen is not None:
-            gen.set_state(saved)
+    with frozen_running_stats(), kept_draws(draws, replay=True):
+        yield
 
 
 def _features(block: nn.Module, *args, **kwargs):
     return block(*args, **kwargs)[0]
 
 
-def _remat_contexts(block: nn.Module):
-    """checkpoint's context_fn: nothing around the forward, _recompute around
-    the recompute, with the generator's state as the forward finds it."""
-    gen = block.generator
-    return nullcontext(), _recompute(block, None if gen is None else gen.get_state())
+def _remat_contexts():
+    """checkpoint's context_fn: the forward records the block's random draws
+    and the recompute replays them. The generator's state is never read or
+    set, which a CUDA graph capture would refuse."""
+    draws = []
+    return kept_draws(draws, replay=False), _recompute(draws)
 
 
 class ResBlockStack(nn.Module):
@@ -77,7 +70,7 @@ class ResBlockStack(nn.Module):
                 # need not stash it
                 feats = checkpoint(_features, block, *args,
                                    use_reentrant=False, preserve_rng_state=False,
-                                   context_fn=functools.partial(_remat_contexts, block),
+                                   context_fn=_remat_contexts,
                                    **kwargs)
             else:
                 feats, _ = block(*args, **kwargs)

@@ -25,7 +25,7 @@ The CUDA source, csrc/layer_eval.cu, says what bounds it and how a block
 keeps every per-edge intermediate out of device memory. The kernel takes the
 folded weights in its own form (packed_weights: the MLP pairs in one padded
 f32 buffer, L in bf16 for a bf16 table), made once and kept on the linear
-weight until one of the folded tensors changes.
+weight until one of the folded tensors changes (ops/kernels/derived.py).
 
 Rounding (both versions), after pcf_tpu's kernel: with an f32 feature table
 every product and sum is f32. With a bf16 table the MLP multiplicands are
@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from pcf_torch.ops.kernels import build
+from pcf_torch.ops.kernels.derived import cached
 from pcf_torch.ops.kernels.window_resolve import window_resolve_plain
 from pcf_torch.ops.vi_transform import VI_coordinate_transform
 
@@ -203,21 +204,13 @@ def _pack(wn, pe, gd, linear_w, linear_b, bf16: bool) -> Packed:
 
 def packed_weights(wn, pe, gd, linear_w, linear_b, bf16: bool) -> Packed:
     """_pack's result, kept on linear_w until any of these tensors changes
-    (_version or data_ptr): the folds nn/fused_eval.py keeps per layer are
-    the same tensors from call to call, so a steady-state call packs
-    nothing. The entry holds the tensors, so a new tensor cannot take a
-    cached one's address."""
+    (_version or data_ptr; derived.cached): the
+    folds nn/fused_eval.py keeps per layer are the same tensors from call to
+    call, so a steady-state call packs nothing."""
     tensors = (linear_w, linear_b) + tuple(t for pairs in (wn, pe, gd)
                                            for p in pairs for t in p)
-    key = tuple((t.data_ptr(), t._version) for t in tensors)
-    cache = linear_w.__dict__.setdefault("_pcf_eval_pack", {})
-    hit = cache.get(bf16)
-    if hit is not None and hit[0] == key:
-        return hit[2]
-    with torch.no_grad():
-        value = _pack(wn, pe, gd, linear_w, linear_b, bf16)
-    cache[bf16] = (key, tensors, value)
-    return value
+    return cached(linear_w.__dict__.setdefault("_pcf_eval_pack", {}), bf16, tensors,
+                  lambda: _pack(wn, pe, gd, linear_w, linear_b, bf16))
 
 
 def _prepare(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,

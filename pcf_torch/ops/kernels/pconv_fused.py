@@ -34,6 +34,7 @@ import functools
 import torch
 
 from pcf_torch.ops.kernels import build
+from pcf_torch.ops.kernels.derived import cached
 from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
 from pcf_torch.ops.window import WindowedEdges
 
@@ -136,29 +137,31 @@ def launch_shape(C: int, K: int, W: int, O: int, M: int, bf16: bool, P: int = 0)
                 projection="mma.sync m16n8k16 bf16" if out[7] else "CUDA cores f32")
 
 
-def _bf16_weight(lw: torch.Tensor) -> torch.Tensor:
+def _bf16_weight(lw: torch.Tensor, keep: bool) -> torch.Tensor:
     """The bf16 projection operand of kernels B and C: L rounded to bf16 (as
     the plain version rounds it), columns zero-padded to a multiple of 8.
-    Kept on the tensor until its data_ptr or _version changes (an optimizer
-    step, a load_state_dict), as nn/fused_eval.py keeps its folds."""
-    key = (lw.data_ptr(), lw._version)
-    cached = getattr(lw, "_pcf_bf16", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    CW, O = lw.shape
-    OP = -(-O // 8) * 8
-    with torch.no_grad():
+    With `keep` (inference) it is kept on the tensor (derived.cached: until
+    L's address or _version changes). A forward that builds a gradient
+    rounds afresh: in a captured train step L changes at every replay, so
+    the rounding must be part of the graph."""
+    def rounded():
+        CW, O = lw.shape
+        OP = -(-O // 8) * 8
         if OP == O:
-            copy = lw.to(torch.bfloat16, copy=True)
-        else:
-            copy = lw.new_zeros((CW, OP), dtype=torch.bfloat16)
-            copy[:, :O] = lw
-    lw._pcf_bf16 = (key, copy)
-    return copy
+            return lw.to(torch.bfloat16, copy=True)
+        copy = lw.new_zeros((CW, OP), dtype=torch.bfloat16)
+        copy[:, :O] = lw
+        return copy
+
+    if not keep:
+        with torch.no_grad():
+            return rounded()
+    return cached(lw.__dict__, "_pcf_bf16", (lw,), rounded)
 
 
-def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
-    """Check the operands of kernel B or C, launch it, return its output."""
+def _launch(name, feats, edges, extra, weights, linear_w, linear_b, keep_weight=True):
+    """Check the operands of kernel B or C, launch it, return its output.
+    `keep_weight`: the bf16 L may be kept between calls (_bf16_weight)."""
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {dev}")
@@ -194,7 +197,7 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b):
     if name == "pcf_conv_linear" and C % E:
         raise ValueError(f"{name}: channels {C} not divisible by heads {E}")
     if feats.dtype == torch.bfloat16:
-        linear_w = _bf16_weight(linear_w)
+        linear_w = _bf16_weight(linear_w, keep_weight)
     if isinstance(edges, WindowedEdges):
         T, Wsz = edges.window_rows.shape
         MtK = edges.localT.shape[-1]
@@ -224,7 +227,7 @@ class _FusedConvLinear(torch.autograd.Function):
     window resolve, so on the card the backward launches kernels A and D."""
 
     @staticmethod
-    def forward(ctx, guided, feats, edges, extra, weights, linear_w, linear_b):
+    def forward(ctx, guided, training, feats, edges, extra, weights, linear_w, linear_b):
         ctx.guided, ctx.edges = guided, edges
         ctx.save_for_backward(feats, extra, weights, linear_w, linear_b)
         if feats.device.type == "cpu":
@@ -234,13 +237,14 @@ class _FusedConvLinear(torch.autograd.Function):
             extra = weights.new_empty(weights.shape[:2] + (0,))
         feats, extra, weights = _common_dtype(feats, extra, weights)
         wrapper = pcf_conv_linear if guided else pconv_pe_conv_linear
-        out = _launch(wrapper.__name__, feats, edges, extra, weights, linear_w, linear_b)
+        out = _launch(wrapper.__name__, feats, edges, extra, weights, linear_w, linear_b,
+                      keep_weight=not training)
         wrapper.launches += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
-        needs = (ctx.needs_input_grad[1],) + ctx.needs_input_grad[3:]
+        needs = (ctx.needs_input_grad[2],) + ctx.needs_input_grad[4:]
         with torch.enable_grad():
             ins = [t if t is None else t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, needs)]
@@ -248,21 +252,27 @@ class _FusedConvLinear(torch.autograd.Function):
             wrt = [t for t in ins if t is not None and t.requires_grad]
             grads = iter(torch.autograd.grad(out, wrt, g))
         d = [next(grads) if t is not None and t.requires_grad else None for t in ins]
-        return None, d[0], None, *d[1:]
+        return None, None, d[0], None, *d[1:]
+
+
+def _training(linear_w) -> bool:
+    """Whether the call builds a gradient of L (decided outside the
+    autograd Function, whose forward runs without grad)."""
+    return torch.is_grad_enabled() and linear_w.requires_grad
 
 
 def pcf_conv_linear(feats, edges, guidance, weights, linear_w, linear_b):
     """Kernel B: feats [N, C], edges [M, K] or WindowedEdges, guidance
     [M, K, H], weights [M, K, W], linear_w [C*W, O], linear_b [O] -> f32 [M, O]."""
-    return _FusedConvLinear.apply(True, feats, edges, guidance, weights,
-                                  linear_w, linear_b)
+    return _FusedConvLinear.apply(True, _training(linear_w), feats, edges, guidance,
+                                  weights, linear_w, linear_b)
 
 
 def pconv_pe_conv_linear(feats, edges, add, weights, linear_w, linear_b):
     """Kernel C: as kernel B with PE features add [M, K, P] (P >= 0, or None)
     appended to the gathered rows; linear_w is [(C+P)*W, O]."""
-    return _FusedConvLinear.apply(False, feats, edges, add, weights,
-                                  linear_w, linear_b)
+    return _FusedConvLinear.apply(False, _training(linear_w), feats, edges, add,
+                                  weights, linear_w, linear_b)
 
 
 pcf_conv_linear.launches = 0

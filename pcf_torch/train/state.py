@@ -12,7 +12,12 @@ formulas are pcf_tpu's:
     clip_grad_norm_'s min(1, c / (|acc| + 1e-6)); the optimizer steps at each
     accumulation boundary with the LR of that micro-step.
 `tx.update()` reads each bound parameter's .grad (a missing one counts as
-zero, as in a pytree) and leaves it as it was, the raw gradient.
+zero, as in a pytree) and leaves it as it was, the raw gradient. It is
+`begin()` on the host, which writes schedule(count) into the 0-d LR tensor
+that the optimizer reads and says whether this update steps, and `apply()`,
+device work only, which a captured train step (parallel/graphs.py) replays.
+The inner optimizers are torch's fused ones (fused=True; Adam and AdamW also
+capturable=True), which take the LR as a tensor on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from pcf_torch.ops.kernels.derived import weights_written
 from pcf_torch.train import lr as lr_schedules
 
 
@@ -43,54 +49,81 @@ class Optimizer:
 
     def init(self, params) -> "Optimizer":
         self.params = list(params)
+        # the LR is read by the optimizer's kernels from this 0-d tensor, which
+        # `begin` fills before each update: a captured step reads the new value
+        # at every replay, where a Python float would be frozen at capture
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.params[0].device)
+        kw = dict(lr=self.lr, fused=True)
         if self.kind == "SGD":
-            self.inner = torch.optim.SGD(self.params, lr=0.0, momentum=0.9)
-        elif self.kind == "Adam":
-            self.inner = torch.optim.Adam(self.params, lr=0.0, betas=(0.9, 0.999),
-                                          eps=1e-8, weight_decay=self.decay)
+            self.inner = torch.optim.SGD(self.params, momentum=0.9, **kw)
         else:
-            self.inner = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999),
-                                           eps=1e-8, weight_decay=self.decay)
+            cls = torch.optim.Adam if self.kind == "Adam" else torch.optim.AdamW
+            self.inner = cls(self.params, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=self.decay, capturable=True, **kw)
         if self.accum > 1:
             self.acc = [torch.zeros_like(p) for p in self.params]
         return self
 
-    def _step(self, grads, lr: float) -> None:
-        """One step of the inner optimizer on `grads` at `lr`; the
-        parameters' .grad is restored afterwards."""
+    def _step(self, grads) -> None:
+        """One step of the inner optimizer on `grads`; the parameters' .grad
+        is restored afterwards."""
         raw = [p.grad for p in self.params]
         for p, g in zip(self.params, grads):
             p.grad = g
-        for group in self.inner.param_groups:
-            group["lr"] = lr
         self.inner.step()
         for p, g in zip(self.params, raw):
             p.grad = g
 
+    def begin(self) -> bool:
+        """The host's half of an update: schedule(count) into the LR tensor.
+        Returns whether this update steps the optimizer (it ends an
+        accumulation), which the host decides from the count."""
+        self.lr.fill_(self.schedule(self.count))
+        return (self.count + 1) % self.accum == 0
+
     @torch.no_grad()
-    def update(self) -> None:
+    def apply(self, steps: bool) -> None:
+        """The device's half of an update, with the LR `begin` wrote: clip,
+        accumulate, and step the optimizer when `steps`. Launches only
+        device work, so a CUDA graph can capture it."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        lr = self.schedule(self.count)
         if self.accum == 1:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             coef = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
-            self._step(torch._foreach_mul(grads, coef), lr)
+            self._step(torch._foreach_mul(grads, coef))
         else:
             torch._foreach_add_(self.acc, torch._foreach_div(grads, self.accum))
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self.acc)))
             torch._foreach_mul_(self.acc, (self.clip_norm / (norm + 1e-6)).clamp(max=1.0))
-            if (self.count + 1) % self.accum == 0:
-                self._step(self.acc, lr)
+            if steps:
+                self._step(self.acc)
                 torch._foreach_zero_(self.acc)
+
+    def update(self) -> None:
+        """One update of the bound parameters from their .grad, eagerly."""
+        self.apply(self.begin())
         self.count += 1
+        weights_written(self.params)  # the fused optimizers move no _version
 
     def state_dict(self) -> dict:
         return {"count": self.count, "inner": self.inner.state_dict(),
                 "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load in place: the LR tensor, the accumulation and every state
+        tensor the optimizer already holds keep their addresses, which a
+        captured train step reads."""
+        held = [dict(self.inner.state.get(p, {})) for p in self.params]
         self.count = state["count"]
         self.inner.load_state_dict(state["inner"])
+        for group in self.inner.param_groups:
+            group["lr"] = self.lr
+        for p, old in zip(self.params, held):
+            new = self.inner.state.get(p, {})
+            for k, t in old.items():
+                if isinstance(t, torch.Tensor) and isinstance(new.get(k), torch.Tensor) \
+                        and new[k].shape == t.shape:
+                    new[k] = t.copy_(new[k])
         if self.acc is not None:
             for a, s in zip(self.acc, state["acc"]):
                 a.copy_(s)

@@ -603,3 +603,163 @@ def test_fused_layer_eval_pack_follows_updates(cuda, dtype):
         gd[0][0].mul_(-1.0)
         again = _check_layer(args, kw, dtype)
     assert not torch.equal(after, again)
+
+
+# ---- the captured steps (parallel/graphs.py) on the entry-size model ------
+# (2 x 4000 points), against the eager bodies, at chip_smoke.py's phase-12
+# tolerances: GRAPH_REL of the logits' scale for a replay (B, C and E add
+# split channel ranges with f32 atomics, in another order each run), SGD
+# train steps with every ReLU and max smooth within GRAPH_LOSS_RTOL and
+# phase 8's gradient tolerance.
+
+def _entry(device, seed=0, level_caps=None):
+    from pcf_torch.entry import flagship_batch
+
+    cfg, batch = flagship_batch(level0_points=4000, bucket=1024, window_gather=True,
+                                device=device, seed=seed, level_caps=level_caps)
+    cfg.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas")
+    return cfg, batch
+
+
+@pytest.mark.parametrize("path,dtype", [("standard", "float32"), ("standard", "bfloat16"),
+                                        ("fused_eval", "float32"), ("fused_eval", "bfloat16"),
+                                        ("flat_geom", "float32")])
+def test_captured_eval_step_matches_eager(cuda, path, dtype):
+    """The eval step's replay against the eager forward, and a second batch
+    of other scenes packed to the same signature replaying the same graph."""
+    from chip_smoke import same_as_eager
+    from pcf_torch.entry import build_eval
+    from pcf_torch.parallel.mesh import make_eager_eval_step
+
+    cfg, batch = _entry(cuda)
+    _, batch2 = _entry(cuda, seed=2, level_caps=[p.shape[0] for p in batch.points])
+    cfg.update(compute_dtype=dtype, fused_eval=path == "fused_eval",
+               flat_geom=path == "flat_geom")
+    model, step = build_eval(cfg, device=cuda, seed=1)
+    with torch.no_grad():
+        model.train()
+        model.forward_batch(batch)
+    eager = make_eager_eval_step(cfg)
+    want, again = eager(model, batch), eager(model, batch)
+    step(model, batch)
+    same_as_eager(path, step(model, batch), want, again, dtype)
+    same_as_eager(path, step(model, batch2), eager(model, batch2), eager(model, batch2), dtype)
+    assert step.graphs.captures == 1 and step.graphs.replays == 2
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_captured_train_steps_match_eager(cuda, rate):
+    """Three captured SGD steps against three eager ones from the same
+    weights, with dropout and DropPath at `rate` (the registered generator)."""
+    from chip_smoke import GRAPH_LOSS_RTOL, grad_ratios, smooth_kinks
+    from pcf_torch.entry import build_training
+    from pcf_torch.parallel.mesh import make_eager_train_step, step_seed
+
+    cfg, batch = _entry(cuda)
+    cfg.update(optimizer="SGD", dropout_rate=rate, drop_path_rate=rate)
+    (sa, captured), (sb, _) = (build_training(cfg, device=cuda),
+                               build_training(cfg.copy(), device=cuda))
+    eager = make_eager_train_step(cfg)
+    with smooth_kinks():
+        for i in range(3):
+            la = captured(sa, batch, step_seed(0, i))[1]["loss"].item()
+            lb = eager(sb, batch, step_seed(0, i))[1]["loss"].item()
+            assert abs(la - lb) <= GRAPH_LOSS_RTOL * abs(lb), (i, la, lb)
+    assert captured.graphs.captures == 1 and captured.graphs.replays == 2
+    over, worst, key = grad_ratios({k: p.detach() for k, p in sa.model.named_parameters()},
+                                   {k: p.detach() for k, p in sb.model.named_parameters()})
+    assert over == 0, (key, worst)
+    assert all(p.grad is not None for p in sa.model.parameters())
+
+
+@pytest.mark.parametrize("path,dtype", [("fused_eval", "float32"), ("standard", "bfloat16")])
+def test_eval_graph_follows_train_replays(cuda, path, dtype):
+    """An eval step used between a captured train step's eager first call
+    and two replays gives, after them, the logits of a fresh model loaded
+    with the trained weights: its BN folds and bf16 copies of L were made
+    again. The allocator's cache is emptied between the captures and the
+    replays: nothing a live graph reads may be memory it releases."""
+    from chip_smoke import same_as_eager
+    from pcf_torch.entry import build, build_training
+    from pcf_torch.parallel.mesh import make_eager_eval_step, make_eval_step, step_seed
+
+    cfg, batch = _entry(cuda)
+    cfg.update(compute_dtype=dtype, optimizer="SGD", fused_eval=path == "fused_eval")
+    state, captured = build_training(cfg, device=cuda)
+    step, eager = make_eval_step(cfg), make_eager_eval_step(cfg)
+    captured(state, batch, step_seed(1, 0))
+    before = step(state.model, batch)
+    torch.cuda.empty_cache()
+    for i in (1, 2):
+        captured(state, batch, step_seed(1, i))
+    fresh = build(cfg.copy(), device=cuda, seed=3)
+    fresh.load_state_dict(state.model.state_dict())
+    want, again = eager(fresh, batch), eager(fresh, batch)
+    for _ in range(2):
+        same_as_eager(path, step(state.model, batch), want, again, dtype)
+    assert (before - want).abs().max() > 10 * (again - want).abs().max()
+
+
+@pytest.mark.parametrize("path,dtype", [("fused_eval", "float32"), ("standard", "bfloat16")])
+@pytest.mark.parametrize("writer", ["train_forward", "optimizer_update"])
+def test_eval_graph_follows_in_place_writes(cuda, writer, path, dtype):
+    """An eval graph captured before a train-mode forward (the BN running
+    statistics, which the folds are made from) or before two
+    Optimizer.update calls (torch's fused AdamW moves no _version) is
+    captured again: its replay, like the eager forward, equals a fresh
+    model loaded with the written weights."""
+    from chip_smoke import same_as_eager
+    from pcf_torch.entry import build, build_training
+    from pcf_torch.parallel.mesh import make_eager_eval_step, make_eval_step
+
+    cfg, batch = _entry(cuda)
+    _, batch2 = _entry(cuda, seed=2, level_caps=[p.shape[0] for p in batch.points])
+    cfg.update(compute_dtype=dtype, fused_eval=path == "fused_eval")
+    state, _ = build_training(cfg, device=cuda, seed=1)
+    model, step, eager = state.model, make_eval_step(cfg), make_eager_eval_step(cfg)
+    with torch.no_grad():
+        model.train()
+        model.forward_batch(batch)
+        model.eval()
+    step(model, batch)
+    before = step(model, batch)
+    if writer == "train_forward":
+        with torch.no_grad():
+            model.train()
+            model.forward_batch(batch2)
+            model.eval()
+    else:
+        gen = torch.Generator(cuda).manual_seed(0)
+        for _ in range(2):
+            for p in model.parameters():
+                p.grad = torch.randn(p.shape, generator=gen, device=cuda, dtype=p.dtype)
+            state.tx.update()
+    fresh = build(cfg.copy(), device=cuda, seed=3)
+    fresh.load_state_dict(model.state_dict())
+    want, again = eager(fresh, batch), eager(fresh, batch)
+    same_as_eager(f"{path} eager after {writer}", eager(model, batch), want, again, dtype)
+    step(model, batch)
+    same_as_eager(f"{path} replay after {writer}", step(model, batch), want, again, dtype)
+    assert step.graphs.captures == 2 and step.graphs.replays == 2
+    assert (before - want).abs().max() > 10 * (again - want).abs().max()
+
+
+def test_bench_prints_its_keys(cuda):
+    """python3 -m pcf_torch.bench prints one JSON line with bench.py's keys
+    (less the derived A100 ratio) and the card's name and power limit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "pcf_torch.bench"], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert set(out) == {"metric", "value", "unit", "ms_per_batch", "ms_min", "ms_max",
+                        "pts_per_sec_min", "pts_per_sec_max", "valid_points", "device"}
+    assert out["valid_points"] == 40000 and out["value"] > 0
+    assert out["device"] == subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
