@@ -89,7 +89,32 @@ Phases (any failure exits non-zero, before the last line is printed):
              the bf16 L copies and BN folds after replays against a fresh
              model loaded with the trained weights; per dtype the replay's
              kernels (phase 6's counts) and 10 steps after 2 warm-up in turns
-             with the eager step. Then `python3 -m pcf_torch.bench`'s line.
+             with the eager step. Then `python3 -m pcf_torch.bench`'s line;
+ 13 entry    the user's entry points on the ScanNet-layout pipeline: synthetic
+             rooms (tools/make_synth_dataset.py, 64 train + 4 val, 15,000
+             points each) under pcf_tpu/configs/synth_flagship.yaml, built in
+             code (phase13_config: PCF_Normal at the flagship width, bf16,
+             windowed, pinned level caps); trainer.main for one epoch (16
+             steps), then again to two (it must resume from epoch 1), launch
+             counts from 0 over each (A, B, C and D must launch), split into
+             eager runs and captures; every eager kernel call of the first
+             run (its first train step and its validation's first call)
+             against its plain version at phases 4, 7 and 10's tolerances
+             (replay_against_plain); the step graphs' captures, replays and
+             pools; finite losses, metrics.jsonl, the checkpoint equal to
+             main's final state bit for bit; the loader's host s per batch
+             at NUM_WORKERS 0 and 4 and main's s/it from its third step on
+             against the replay median of its step; one more epoch with
+             unpinned caps (a graph per signature) under a pool budget of two
+             train graphs: graphs dropped, and the card's memory reserved
+             after it no more than the pools held and 1 GiB; then eval.simple.evaluate with fused_eval on the 4
+             validation scenes from the checkpoint: E 29 times in each new
+             signature's eager call (A to D never), each of those calls
+             against its plain version, each replay against the eager
+             forward (same_as_eager), its RMS distance from the f32
+             standard forward against the eager standard bf16 forward's
+             (FUSED_BF16_WITNESS), the fold on the trained weights in
+             f32 at FOLD_TOL, replay ms and points/s per scene.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -103,6 +128,7 @@ write rate for the bytes the kernel writes).
 """
 
 import contextlib
+import dataclasses
 import faulthandler
 import functools
 import gc
@@ -110,8 +136,10 @@ import json
 import math
 import re
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -179,13 +207,18 @@ GRAPH_LOSS_RTOL = 1e-6
 # either way, in two eager runs alike: the parameters of two runs are not
 # comparable, nor, closely, their later losses. Each loss is held relative,
 # beside the eager step's own spread; the state, which follows the gradient
-# smoothly, is: `step` exactly, exp_avg and sqrt(exp_avg_sq) per parameter
-# within phase 8's gradient tolerance; and the last step's update of every
+# smoothly, is: `step` exactly; exp_avg and sqrt(exp_avg_sq) per parameter
+# within phase 8's gradient tolerance or, where the eager step's own spread
+# (a second eager run against the first, the same run) exceeds it, within
+# ADAMW_STATE_WITNESS times that spread (three runs on the H100: eager
+# against eager 0.97 to 1.28 of the tolerance, captured against eager 0.66
+# to 1.01); and the last step's update of every
 # entry against AdamW's formula on the state it left, the LR schedule(2) and
 # step 3, within ADAMW_UPDATE_ATOL of that LR (f32 rounding of the weights is
 # below 1e-4 of it). A counter frozen at 1 or the LR frozen at its capture
 # value would read hundreds of times that (printed, and asserted beyond it)
 ADAMW_LOSS_RTOL = 1e-3
+ADAMW_STATE_WITNESS = 2.0
 ADAMW_UPDATE_ATOL = 1e-3
 
 SOURCES = {
@@ -259,6 +292,91 @@ class KwRecorder(Recorder):
     def __call__(self, *args, **kw):
         self.calls.append((args, kw))
         return self.fn(*args, **kw)
+
+
+def snapshot(x):
+    """A copy of a wrapper's argument: tensors cloned, also inside lists,
+    tuples and dataclasses (WindowedEdges), everything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        items = [snapshot(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: snapshot(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+class EagerRecorder(KwRecorder):
+    """A KwRecorder for phase 13 that keeps a copy of the arguments of each
+    call made outside a graph capture (a step's eager first call): the step
+    goes on to write some of them in place (the weights, at the optimizer's
+    update; the static batch, at each replay), and a capture's arguments
+    hold no values."""
+
+    def __call__(self, *args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            self.calls.append((snapshot(args), snapshot(kw)))
+        return self.fn(*args, **kw)
+
+
+def check_call(name, kern, plain, args, kw=None, label=None) -> float:
+    """One call of a kernel's wrapper `kern` against its plain version on
+    the same inputs; returns the max abs error. window_resolve bit-exact;
+    B, C and E (pcf_conv_linear, pconv_pe_conv_linear, fused_layer_eval)
+    within F32_TOL for float32 inputs, else within BF16_REL of the output's
+    scale, E's max-pool shortcut exact; D (window_scatter) within
+    SCATTER_F32_REL of the output's scale, and one bf16 step for a bf16
+    output."""
+    kw = kw or {}
+    label = label or name
+    got, want = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    if name == "window_resolve":
+        assert torch.equal(got, want), f"{label}: not bit-exact"
+        return 0.0
+    if name == "fused_layer_eval":
+        (got, got_s), (want, want_s) = got, want
+        if want_s is not None:
+            assert torch.equal(got_s, want_s), f"{label}: the shortcut differs"
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    if name == "window_scatter":
+        tol = dict(rtol=0.0 if args[4] == torch.float32 else SCATTER_BF16_RTOL,
+                   atol=SCATTER_F32_REL * scale)
+    elif args[0].dtype == torch.float32:
+        tol = F32_TOL
+    else:
+        tol = dict(atol=BF16_REL * scale, rtol=BF16_REL)
+    assert torch.allclose(got, want, **tol), (
+        f"{label}: max err {diff:.3e} (scale {scale:.3e})")
+    return diff
+
+
+def replay_against_plain(recs) -> dict:
+    """Every call the EagerRecorders `recs` kept against its plain version
+    (check_call). Returns {wrapper name: (calls, max abs err)}."""
+    from pcf_torch.ops.kernels.layer_eval import fused_layer_eval, fused_layer_eval_plain
+    from pcf_torch.ops.kernels.pconv_fused import (
+        pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
+        pcf_conv_linear_plain)
+    from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
+    from pcf_torch.ops.kernels.window_scatter import window_scatter, window_scatter_plain
+
+    pairs = {"window_resolve": (window_resolve, window_resolve_plain),
+             "pcf_conv_linear": (pcf_conv_linear, pcf_conv_linear_plain),
+             "pconv_pe_conv_linear": (pconv_pe_conv_linear, pconv_pe_conv_linear_plain),
+             "window_scatter": (window_scatter, window_scatter_plain),
+             "fused_layer_eval": (fused_layer_eval, fused_layer_eval_plain)}
+    out = {}
+    with torch.no_grad():
+        for name, (kern, plain) in pairs.items():
+            calls = [c for r in recs if r.name == name for c in r.calls]
+            out[name] = (len(calls), max((check_call(name, kern, plain, a, kw)
+                                          for a, kw in calls), default=0.0))
+    return out
 
 
 def timed_in_turns(fns: dict, warmup: int, reps: int) -> dict:
@@ -516,6 +634,10 @@ def max_diff(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def rms_diff(a, b) -> float:
+    return (a.float() - b.float()).pow(2).mean().sqrt().item()
+
+
 def same_as_eager(label, got, want, again, dtype_name):
     """A replay's logits against the eager forward's on the same batch,
     within GRAPH_REL of the scale for the model's compute dtype; `again`, a
@@ -724,8 +846,10 @@ def graphs_phase(cfg, batch, batch2, models, eager_launches, valid):
                 f"; last update against AdamW's formula (LR {lr:.6g}, step 3): captured "
                 f"{update[0]:.4f}, eager {update[1]:.4f} of ADAMW_UPDATE_ATOL; planted "
                 f"faults would read " + ", ".join(f"{k} {v:.1f}" for k, v in faults.items()))
-            for k, (c, _) in reads.items():
-                assert c[0] == 0, f"captured AdamW {k} of {c[2]} differs from eager"
+            for k, (c, e) in reads.items():
+                assert c[1] <= max(1.0, ADAMW_STATE_WITNESS * e[1]), (
+                    f"captured AdamW {k} of {c[2]} differs from eager: {c[1]:.3f} of phase "
+                    f"8's tolerance, the eager step's own spread {e[1]:.3f}")
             assert max(update.values()) <= 1.0, f"the last AdamW update is off: {update}"
             assert min(faults.values()) > 1.0, f"a planted fault passes the check: {faults}"
         del copies, states, captured, eager_step, params
@@ -876,6 +1000,461 @@ def bench_phase():
     captures = step.graphs.captures
     bench.run(model, step, batch)
     assert step.graphs.captures == captures, "the bench captured its step anew"
+
+
+# pcf_tpu/configs/synth_flagship.yaml, key for key, built in code (the card's
+# machine has no yaml), without compile_cache_dir (pcf_tpu's JAX cache)
+SYNTH_FLAGSHIP = dict(
+    BATCH_NORM=True, BATCH_SIZE=4, USE_XYZ=True, USE_PE=True, USE_WEIGHT=True, manual_seed=1,
+    print_freq=5, eval_freq=3, save_freq=3, MAX_POINTS_NUM=60000, K_self=[16] * 5,
+    K_forward=[16] * 5, K_propagate=[16] * 5, point_dim=3, total_epoches=12, num_level=5,
+    grid_size=[0.1, 0.2, 0.4, 0.8, 1.6], base_dim=64, feat_dim=[64, 128, 192, 256, 384],
+    mid_dim=[16] * 5, mid_dim_back=1, guided_level=0, num_heads=8, resblocks=[0, 2, 4, 6, 6],
+    resblocks_back=[0] * 5, train_data_path="./data/synth/train/*.npz",
+    val_data_path="./data/synth/val/*.npz", test_data_path="./data/synth/val/*.npz",
+    optimizer="AdamW", adamw_decay=0.05, learning_rate=0.01, gamma=0.5, label_smoothing=0.2,
+    scheduler="MultiStepWithWarmup", milestones=[8, 10], decay_rate=0.0001, ignore_label=-100,
+    drop_path_rate=0.0, dropout_rate=0.0, dropout_fc=0.0, scheduler_update="step",
+    warmup="linear", warmup_epochs=1, warmup_ratio=1.0e-05, num_classes=8,
+    classes=["wall", "floor", "ceiling", "table", "chair", "sofa", "cabinet", "clutter"],
+    bucket_multiple=4096, USE_PALLAS_KERNEL=False, compute_dtype="bfloat16", window_gather=True,
+    model_name="PCF_TPU_synth_flagship", experiment_dir="./experiments/synth_flagship",
+    pin_level_caps=True, level_caps_sample=8, level_caps_margin=1.15)
+# phase 13's rooms: tools/make_synth_dataset.py at its default 15,000 points a
+# room; 64 training rooms make a 16-step epoch at BATCH_SIZE 4, long enough
+# that the batches packed ahead while the first step captures its graph
+# (the loader's prefetch queue) run out and main's rate is its steady one
+ENTRY_TRAIN_ROOMS, ENTRY_VAL_ROOMS, ENTRY_ROOM_POINTS = 64, 4, 15000
+# phase 13: main's s/it is timed from this step on (0-based: the first is
+# the eager run and the capture, the second may read a batch packed ahead)
+ENTRY_STEADY_FROM = 2
+# phase 13: train replays timed after warm-up, for main's s/it
+ENTRY_REPLAY_WARMUP, ENTRY_REPLAY_REPS = 2, 5
+# phase 13: evaluate's fused_eval replay (bf16) held, beside the eager
+# standard bf16 forward, to the f32 standard forward of the same weights:
+# its RMS error over the valid logits at most FUSED_BF16_WITNESS times the
+# standard bf16 forward's. The two bf16 forwards round at other places (the
+# folded weights, each layer's output), and each adds channel splits with
+# f32 atomics, so their distance from each other grows with the
+# activations: on the H100 it read 0.7e-2 to 1.1e-2 of the logit scale
+# after 6 training steps (logits near 2) and 2.1e-2 to 3.3e-2 after 32
+# (logits of 40-190), where two eager fused_eval forwards already differed
+# by 1.1e-2. Against f32, the largest error of the fused replay read 0.80
+# to 1.48 times the standard forward's over 4 scenes; the RMS, the gate,
+# averages out which logit happens to round worst. A layer gone wrong
+# moves the logits by their whole scale; each E call of the evaluation is
+# also held to its plain version.
+FUSED_BF16_WITNESS = 2.0
+
+
+def phase13_config(data_dir: str, exp_dir: str):
+    """Phase 13's configuration: SYNTH_FLAGSHIP with the defaults that
+    pcf_torch.config.load_config fills, and these overrides (PERF.md section
+    4): the fused conv kernels B and C on every conv layer, as phases 3-12
+    run them; the data and the experiment under the phase's temporary
+    directory; one epoch; validation and a checkpoint every epoch."""
+    from pcf_torch.config import Config, get_default_configs, get_default_training_cfgs
+
+    cfg = Config.from_dict(SYNTH_FLAGSHIP)
+    cfg = get_default_training_cfgs(get_default_configs(cfg, cfg.num_level, cfg.base_dim))
+    cfg.config = "pcf_tpu/configs/synth_flagship.yaml"
+    cfg.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas",
+               train_data_path=os.path.join(data_dir, "train", "*.npz"),
+               val_data_path=os.path.join(data_dir, "val", "*.npz"),
+               test_data_path=os.path.join(data_dir, "val", "*.npz"),
+               experiment_dir=exp_dir, total_epoches=1, eval_freq=1, save_freq=1)
+    return cfg
+
+
+class EntryRecorder:
+    """Phase 13's view into the entry points, which make their own steps:
+    parallel.mesh.make_train_step and make_eval_step are wrapped so that each
+    step function made records its calls (batch, start, duration, launches
+    per wrapper and how many of them were inside a graph capture, and an eval
+    call's logits); StepGraphs._capture is wrapped to count the launches made
+    while a graph is captured; trainer.train_one_epoch to note when each
+    epoch ended. Train calls are not synchronised (main's own timing); eval
+    calls are, after the call (evaluate synchronises its timed call too)."""
+
+    def __init__(self, wrappers):
+        import pcf_torch.parallel.graphs as graphs_mod
+        import pcf_torch.parallel.mesh as mesh_mod
+        from pcf_torch.train import trainer
+
+        self.wrappers = wrappers
+        self.steps = {"train": [], "eval": []}
+        self.epoch_ends = []
+        self.in_capture = dict.fromkeys(wrappers, 0)
+        self._undo = []
+        capture, one_epoch = graphs_mod.StepGraphs._capture, trainer.train_one_epoch
+
+        def counted_capture(graphs, *a, **kw):
+            before = self.counts()
+            try:
+                return capture(graphs, *a, **kw)
+            finally:
+                for k, n in self.counts().items():
+                    self.in_capture[k] += n - before[k]
+
+        def timed_epoch(*a, **kw):
+            out = one_epoch(*a, **kw)
+            torch.cuda.synchronize()
+            self.epoch_ends.append(time.perf_counter())
+            return out
+
+        self._patch(graphs_mod.StepGraphs, "_capture", counted_capture)
+        self._patch(trainer, "train_one_epoch", timed_epoch)
+        for kind in ("train", "eval"):
+            make = getattr(mesh_mod, f"make_{kind}_step")
+            self._patch(mesh_mod, f"make_{kind}_step", functools.partial(self._make, kind, make))
+
+    def _patch(self, owner, name, value):
+        self._undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def restore(self):
+        for owner, name, value in reversed(self._undo):
+            setattr(owner, name, value)
+
+    def counts(self) -> dict:
+        return {k: fn.launches for k, fn in self.wrappers.items()}
+
+    def zero(self):
+        for fn in self.wrappers.values():
+            fn.launches = 0
+        self.in_capture = dict.fromkeys(self.wrappers, 0)
+
+    def _make(self, kind, make, *a, **kw):
+        step = make(*a, **kw)
+        calls = []
+
+        def recorded(*args):
+            before, captured = self.counts(), dict(self.in_capture)
+            t = time.perf_counter()
+            out = step(*args)
+            if kind == "eval":
+                torch.cuda.synchronize()
+            call = dict(batch=args[1], start=t, ms=(time.perf_counter() - t) * 1e3,
+                        launches={k: n - before[k] for k, n in self.counts().items()},
+                        captured={k: n - captured[k] for k, n in self.in_capture.items()})
+            if kind == "eval":
+                call.update(model=args[0], logits=out)
+            calls.append(call)
+            return out
+
+        recorded.graphs, recorded.calls = step.graphs, calls
+        self.steps[kind].append(recorded)
+        return recorded
+
+
+def eager_recorders() -> list:
+    """EagerRecorders on every wrapper of kernels A-E where the model looks
+    it up (the places of phases 4, 6 and 10)."""
+    import pcf_torch.nn.fused as fused_mod
+    import pcf_torch.nn.fused_eval as fused_eval_mod
+    import pcf_torch.ops.kernels.pconv_fused as pconv_mod
+    import pcf_torch.ops.kernels.window_resolve as resolve_mod
+    import pcf_torch.ops.window as window_mod
+
+    return [EagerRecorder(window_mod, "window_resolve"),
+            EagerRecorder(pconv_mod, "window_resolve"),
+            EagerRecorder(fused_mod, "pcf_conv_linear"),
+            EagerRecorder(fused_mod, "pconv_pe_conv_linear"),
+            EagerRecorder(resolve_mod, "window_scatter"),
+            EagerRecorder(fused_eval_mod, "fused_layer_eval")]
+
+
+def entry_phase(wrappers, smi, device="cuda"):
+    """Phase 13: trainer.main and eval.simple.evaluate on the card (see the
+    module docstring); the entry points take their default device, the
+    checks run on `device`."""
+    import pcf_torch.parallel.graphs as graphs_mod
+    from pcf_torch.data.pyramid import use_native
+    from pcf_torch.data.scannet import getdataLoaders
+    from pcf_torch.entry import build
+    from pcf_torch.eval.simple import evaluate
+    from pcf_torch.nn.layers import PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE
+    from pcf_torch.parallel.mesh import make_eager_eval_step
+    from pcf_torch.train import trainer
+    from pcf_torch.train.checkpoint import CheckpointManager
+    from pcf_torch.utils.memory import graph_pool_bytes
+
+    names = {"window_resolve": "A", "pcf_conv_linear": "B", "pconv_pe_conv_linear": "C",
+             "window_scatter": "D", "window_resolve_flat": "flat", "fused_layer_eval": "E"}
+
+    def split(counts, captured):
+        return ", ".join(f"{names[k]} {n} ({n - captured[k]} eager, {captured[k]} in "
+                         f"captures)" for k, n in counts.items())
+
+    def eager_calls_held(label, recs, counts, captured):
+        """The eager calls `recs` kept: one for each launch outside a
+        capture, each against its plain version (check_call)."""
+        for r in recs:
+            r.restore()
+        for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear",
+                  "window_scatter", "fused_layer_eval"):
+            kept = sum(len(r.calls) for r in recs if r.name == k)
+            assert kept == counts[k] - captured[k], (
+                f"{label}: {kept} {k} calls kept, {counts[k] - captured[k]} launched eagerly")
+        res = replay_against_plain(recs)
+        log(f"[entry] {label}: every eager kernel call against its plain version: " + "; ".join(
+            f"{names[k]} {n} calls, " + ("bit-exact" if k == "window_resolve" else
+                                         f"max abs err {e:.3e}")
+            for k, (n, e) in res.items() if n))
+
+    def pools(step) -> str:
+        g = graph_pool_bytes(step.graphs)
+        return (f"{g['graphs']} graph(s) held, pool {g['pool_bytes'] / 2**20:.1f} MiB "
+                f"({g['live_bytes'] / 2**20:.1f} MiB live), captures {step.graphs.captures}, "
+                f"replays {step.graphs.replays}, evictions {step.graphs.evictions}")
+
+    def train_gates(label, cfg, rec, unpinned=False):
+        counts, captured = rec.counts(), dict(rec.in_capture)
+        log(f"[entry] {label}: launches {split(counts, captured)}")
+        for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear", "window_scatter"):
+            assert counts[k] > 0, f"{label}: {k} was not launched through trainer.main"
+        train, val = rec.steps["train"][-1], rec.steps["eval"][-1]
+        sigs = [c["batch"].signature() for c in train.calls]
+        windowed = {s for s, c in zip(sigs, train.calls)
+                    if not isinstance(c["batch"].edges_self[0], torch.Tensor)}
+        log(f"[entry] {label}: {len(train.calls)} train steps of {len(set(sigs))} "
+            f"signature(s) ({len(windowed)} windowed); train graphs: {pools(train)}; "
+            f"validation graphs: {pools(val)}")
+        g = train.graphs
+        newest = max(e.pool_bytes for e in g.entries.values())
+        budget = g.budget_bytes(device)
+        assert g.pool_bytes() <= max(budget, newest), (
+            f"{label}: pools of {g.pool_bytes()} bytes over the budget {budget}")
+        if not unpinned:
+            assert len(windowed) <= 1, f"{label}: pinned caps gave {len(windowed)} signatures"
+            assert g.captures == len(set(sigs)) and g.evictions == 0, (
+                f"{label}: {g.captures} captures, {g.evictions} evictions for "
+                f"{len(set(sigs))} signatures")
+        log(f"[entry] {label}: level caps {cfg.get('level_caps')}, window sizes "
+            f"{cfg.window_sizes}")
+        return train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as root:
+        data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+        t0 = time.time()
+        subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                      "tools", "make_synth_dataset.py"),
+                        "--out", data, "--train", str(ENTRY_TRAIN_ROOMS),
+                        "--val", str(ENTRY_VAL_ROOMS), "--points", str(ENTRY_ROOM_POINTS)],
+                       check=True, capture_output=True)
+        log(f"[entry] {ENTRY_TRAIN_ROOMS} + {ENTRY_VAL_ROOMS} synthetic rooms written in "
+            f"{time.time() - t0:.1f} s; host pyramid: "
+            f"{'native (pcf_torch/native, built by g++)' if use_native() else 'numpy/scipy'}")
+        rec = EntryRecorder(wrappers)
+        try:
+            # -- trainer.main: one epoch, then resumed to two ------------------
+            s_per_it = []
+            for total in (1, 2):
+                label = f"trainer.main to epoch {total}"
+                cfg = phase13_config(data, exp)
+                cfg.total_epoches = total
+                rec.zero()
+                # the first run's eager calls (its first train step and its
+                # validation's first call), each held to its plain version
+                recs = eager_recorders() if total == 1 else []
+                ends = len(rec.epoch_ends)
+                t0 = time.perf_counter()
+                state = trainer.main(cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                train = train_gates(label, cfg, rec)
+                if recs:
+                    eager_calls_held(label, recs, rec.counts(), rec.in_capture)
+                    del recs
+                    gc.collect()
+                calls, end = train.calls, rec.epoch_ends[ends]
+                assert len(calls) > ENTRY_STEADY_FROM + 8, f"{label}: {len(calls)} steps"
+                steady = calls[ENTRY_STEADY_FROM:]
+                s_it = (end - steady[0]["start"]) / len(steady)
+                s_per_it.append(s_it)
+                gaps = [b["start"] - a["start"] for a, b in zip(calls, calls[1:])]
+                log(f"[entry] {label}: {wall:.1f} s in all; the epoch's first step (eager run and "
+                    f"capture) {calls[0]['ms'] / 1e3:.3f} s; {s_it:.4f} s/it over steps "
+                    f"{ENTRY_STEADY_FROM + 1}-{len(calls)}; s from each step's start to the "
+                    f"next's {[round(g, 4) for g in gaps]}")
+            logfile = open(os.path.join(exp, "log.txt")).read()
+            assert "resumed from epoch 1" in logfile, "the second main did not resume"
+            lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
+            assert [sorted(k for k in r if k.startswith(("train_", "val_"))) for r in lines] == [
+                ["train_allacc", "train_loss", "train_macc", "train_miou"],
+                ["val_allacc", "val_macc", "val_miou"]] * 2, lines
+            losses = [r["train_loss"] for r in lines if "train_loss" in r]
+            assert all(math.isfinite(v) for v in losses), losses
+            params, stats, epoch = CheckpointManager(os.path.join(exp, "model")).restore_eval()
+            saved = {**params, **stats}
+            for k, v in state.model.state_dict().items():
+                assert torch.equal(v.cpu(), saved[k]), f"checkpoint differs from main's {k}"
+            log(f"[entry] metrics.jsonl: {len(lines)} lines, train losses {losses}; checkpoint "
+                f"of epoch {epoch} equal to main's final state bit for bit "
+                f"({len(saved)} tensors)")
+
+            # the same step, replayed on its last batch
+            batch = train.calls[-1]["batch"]
+            replays = []
+            for i in range(ENTRY_REPLAY_WARMUP + ENTRY_REPLAY_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                train(state, batch, i)
+                torch.cuda.synchronize()
+                if i >= ENTRY_REPLAY_WARMUP:
+                    replays.append(time.perf_counter() - t)
+            replay_s = statistics.median(replays)
+
+            # the loader alone: one epoch of train batches per worker count
+            loader_s = {}
+            for workers in (0, 4):
+                cfg_l = phase13_config(data, exp)
+                cfg_l.update(NUM_WORKERS=workers, level_caps=cfg.level_caps,
+                             window_sizes=cfg.window_sizes)
+                loader, _, _, _ = getdataLoaders(cfg_l)
+                t = time.perf_counter()
+                n = sum(1 for _ in loader)
+                loader_s[workers] = ((time.perf_counter() - t) / n, n)
+            log(f"[entry] loader: " + "; ".join(
+                f"NUM_WORKERS {w}: {s:.4f} s per packed batch ({n} batches)"
+                for w, (s, n) in loader_s.items()))
+            train_pool = max(e.pool_bytes for e in train.graphs.entries.values())
+            del state, train, batch
+            for steps in rec.steps.values():
+                steps.clear()  # their graphs and pools
+            gc.collect()
+
+            # -- one epoch under unpinned caps: a graph per signature, the
+            # pools held to a budget of two train graphs, so that the least
+            # recently used are dropped and their memory goes back ---------
+            cfg_u = phase13_config(data, os.path.join(root, "exp_unpinned"))
+            cfg_u.pin_level_caps = False
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            rec.zero()
+            graphs_mod.POOL_BUDGET_BYTES = 2 * train_pool
+            try:
+                trainer.main(cfg_u)
+                unpinned = train_gates("trainer.main, unpinned caps", cfg_u, rec,
+                                       unpinned=True)
+            finally:
+                graphs_mod.POOL_BUDGET_BYTES = None
+            g = unpinned.graphs
+            sigs = {c["batch"].signature() for c in unpinned.calls}
+            assert g.evictions > 0 or len(sigs) <= 2, (
+                f"{len(sigs)} signatures under a budget of two train graphs, no eviction")
+            gc.collect()
+            torch.cuda.empty_cache()
+            grown = torch.cuda.memory_reserved() - reserved
+            held = g.pool_bytes() + rec.steps["eval"][-1].graphs.pool_bytes()
+            log(f"[entry] trainer.main, unpinned caps, budget {2 * train_pool / 2**20:.1f} MiB "
+                f"(two train graphs): memory reserved grew by {grown / 2**20:.1f} MiB, the "
+                f"graphs held (train and validation) {held / 2**20:.1f} MiB")
+            # besides the pools held: the model, its optimizer state, the
+            # static batches; a dropped train graph's pool is 3.8-4.8 GiB
+            assert grown <= held + 2**30, (
+                f"the memory of dropped graphs did not come back: {grown} bytes reserved, "
+                f"{held} held in pools")
+            unpinned_pool = graph_pool_bytes(g)["pool_bytes"]
+            del unpinned, g
+            for steps in rec.steps.values():
+                steps.clear()
+            gc.collect()
+
+            # -- eval.simple.evaluate with fused_eval, from the checkpoint -----
+            cfg_e = phase13_config(data, exp)
+            cfg_e.update(fused_eval=True, eval_path=os.path.join(root, "eval"))
+            rec.zero()
+            recs = eager_recorders()
+            miou, mean_s = evaluate(cfg_e, pretrain_path=os.path.join(exp, "model"))
+            counts, captured = rec.counts(), dict(rec.in_capture)
+            log(f"[entry] evaluate: launches {split(counts, captured)}; mIoU {miou:.4f}, "
+                f"{mean_s * 1e3:.3f} ms per scene (evaluate's own mean)")
+            assert counts["fused_layer_eval"] > 0, "E was not launched through evaluate"
+            for k in ("pcf_conv_linear", "pconv_pe_conv_linear", "window_scatter"):
+                assert counts[k] == 0, f"evaluate with fused_eval launched {k}"
+            eager_calls_held("evaluate", recs, counts, captured)
+            del recs
+            assert 0.0 <= miou <= 1.0 and math.isfinite(mean_s), (miou, mean_s)
+            ev = rec.steps["eval"][-1]
+            assert len(ev.calls) == 2 * ENTRY_VAL_ROOMS, len(ev.calls)
+            model = ev.calls[0]["model"]
+            conv_layers = (PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE)
+            n_conv = sum(isinstance(m, conv_layers) for m in model.modules())
+            cfg32 = cfg_e.copy()
+            cfg32.compute_dtype = "float32"
+            model32 = build(cfg32, device=device)
+            model32.load_state_dict(model.state_dict())
+            eager = make_eager_eval_step(cfg_e)
+            outs = sorted(os.listdir(cfg_e.eval_path))
+            seen = set()
+            for i in range(ENTRY_VAL_ROOMS):
+                first, second = ev.calls[2 * i], ev.calls[2 * i + 1]
+                batch = first["batch"].to(device)
+                sig = first["batch"].signature()
+                e_first = first["launches"]["fused_layer_eval"] - first["captured"][
+                    "fused_layer_eval"]
+                if sig in seen:
+                    assert sum(first["launches"].values()) == 0, first["launches"]
+                else:
+                    assert e_first == first["captured"]["fused_layer_eval"] == n_conv, (
+                        f"scene {i}: E {e_first} times in the eager call, "
+                        f"{first['captured']['fused_layer_eval']} in the capture, for "
+                        f"{n_conv} conv layers")
+                seen.add(sig)
+                assert sum(second["launches"].values()) == 0, second["launches"]
+                model.cfg.fused_eval = True
+                want, again = eager(model, batch), eager(model, batch)
+                same_as_eager(f"evaluate scene {i} replay", second["logits"], want, again,
+                              "bfloat16")
+                model.cfg.fused_eval = False
+                standard = eager(model, batch)
+                model.cfg.fused_eval = True
+                m0 = batch.masks[0]
+                with torch.no_grad():
+                    model32.cfg.fused_eval = False
+                    std32 = model32.forward_batch(batch)
+                    model32.cfg.fused_eval = True
+                    fused32 = model32.forward_batch(batch)
+                fold = max_diff(fused32[m0], std32[m0])
+                assert torch.allclose(fused32[m0], std32[m0], **FOLD_TOL), (
+                    f"scene {i}: the fold of the trained weights differs by {fold:.3e}")
+                want32 = std32[m0]
+                scale = want32.abs().max().item()
+                to_standard = max_diff(second["logits"][m0], standard[m0])
+                fused_err, standard_err = (
+                    (max_diff(x[m0], want32), rms_diff(x[m0], want32))
+                    for x in (second["logits"], standard))
+                ratio = fused_err[1] / standard_err[1]
+                assert ratio <= FUSED_BF16_WITNESS, (
+                    f"scene {i}: the bf16 fused_eval replay is {fused_err[1]:.3e} (RMS) from "
+                    f"the f32 standard forward, the bf16 standard forward {standard_err[1]:.3e}")
+                valid = int(m0.sum())
+                log(f"[entry] evaluate scene {i}: {valid} valid points, caps "
+                    f"{[p.shape[0] for p in batch.points]}, "
+                    f"{'new signature' if e_first else 'signature seen before'}: first call "
+                    f"{first['ms']:.1f} ms, replay {second['ms']:.3f} ms "
+                    f"({valid / second['ms'] * 1e3:.1f} points/s); against the f32 standard "
+                    f"forward (logit scale {scale:.3e}), max abs / RMS err: the bf16 replay "
+                    f"{fused_err[0]:.3e} / {fused_err[1]:.3e}, the eager bf16 standard forward "
+                    f"{standard_err[0]:.3e} / {standard_err[1]:.3e}, RMS ratio {ratio:.3f} "
+                    f"(FUSED_BF16_WITNESS), max ratio {fused_err[0] / standard_err[0]:.3f}; the "
+                    f"replay against the bf16 standard forward {to_standard:.3e} "
+                    f"({to_standard / scale:.3e} of the scale); fold in f32 {fold:.3e} "
+                    f"(FOLD_TOL)")
+                for suffix in ("_probs.npy", ".ply", ".txt"):
+                    assert any(f.endswith(suffix) for f in outs), f"no {suffix} written"
+            log(f"[entry] evaluate graphs: {pools(ev)}")
+            eval_pool = graph_pool_bytes(ev.graphs)["pool_bytes"]
+        finally:
+            rec.restore()
+    log(f"[entry] summary ({smi}): loader host s per packed batch "
+        + ", ".join(f"NUM_WORKERS {w} {s:.4f}" for w, (s, _) in loader_s.items())
+        + f"; main (NUM_WORKERS {cfg.NUM_WORKERS}) s/it from step {ENTRY_STEADY_FROM + 1} on "
+        f"{', '.join(f'{s:.4f}' for s in s_per_it)} (epochs 1, 2) against the train replay "
+        f"median {replay_s:.4f} s ({len(replays)} replays, min {min(replays):.4f}, max "
+        f"{max(replays):.4f}); graph pools: unpinned train epoch "
+        f"{unpinned_pool / 2**20:.1f} MiB, evaluate {eval_pool / 2**20:.1f} MiB")
 
 
 def main() -> int:
@@ -1099,22 +1678,11 @@ def main() -> int:
                 err = 0.0
                 with torch.no_grad():
                     for args in cl:
-                        got, want = kern(*args), plain(*args)
-                        torch.cuda.synchronize()
-                        if kname == "window_resolve":
-                            assert torch.equal(got, want), f"{kname} {mode} not bit-exact"
-                            if baseline is not None:
-                                assert torch.equal(baseline(*args), want), (
-                                    "baseline window_resolve not bit-exact")
-                            continue
-                        diff = (got - want).abs().max().item()
-                        err = max(err, diff)
-                        scale = want.abs().max().item()
-                        tol = (F32_TOL if dt == torch.float32 else
-                               dict(atol=BF16_REL * scale, rtol=BF16_REL))
-                        assert torch.allclose(got, want, **tol), (
-                            f"{kname} {dtype_name} {mode}: max err {diff:.3e} "
-                            f"(scale {scale:.3e})")
+                        err = max(err, check_call(kname, kern, plain, args,
+                                                  label=f"{kname} {dtype_name} {mode}"))
+                        if kname == "window_resolve" and baseline is not None:
+                            assert torch.equal(baseline(*args), plain(*args)), (
+                                "baseline window_resolve not bit-exact")
                     ms = cuda_ms(lambda: [kern(*a) for a in cl])
                     plain_ms = cuda_ms(lambda: [plain(*a) for a in cl], reps=3)
                     lib_ms = None
@@ -1259,17 +1827,9 @@ def main() -> int:
         calls = run["calls"]
         err = 0.0
         with torch.no_grad():
-            for g, wr, lt, n_rows, dt in calls:
-                got, want = window_scatter(g, wr, lt, n_rows, dt), window_scatter_plain(
-                    g, wr, lt, n_rows, dt)
-                torch.cuda.synchronize()
-                scale = want.float().abs().max().item()
-                diff = (got.float() - want.float()).abs().max().item()
-                err = max(err, diff)
-                rtol = 0.0 if dt == torch.float32 else SCATTER_BF16_RTOL
-                assert torch.allclose(got.float(), want.float(), rtol=rtol,
-                                      atol=SCATTER_F32_REL * scale), (
-                    f"window_scatter {dtype_name}: max err {diff:.3e} (scale {scale:.3e})")
+            for args in calls:
+                err = max(err, check_call("window_scatter", window_scatter, window_scatter_plain,
+                                          args, label=f"window_scatter {dtype_name}"))
             ms = cuda_ms(lambda: [window_scatter(*a) for a in calls])
             inverse_ms = cuda_ms(lambda: [window_scatter_inverse(*a) for a in calls])
             plain_ms = cuda_ms(lambda: [window_scatter_plain(*a) for a in calls], reps=3)
@@ -1470,18 +2030,9 @@ def main() -> int:
         err = 0.0
         with torch.no_grad():
             for args, kw in calls:
-                (got, got_s), (want, want_s) = (fused_layer_eval(*args, **kw),
-                                                fused_layer_eval_plain(*args, **kw))
-                torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs().max().item()
-                err = max(err, diff)
-                scale = want.float().abs().max().item()
-                tol = (F32_TOL if dt == torch.float32 else
-                       dict(atol=BF16_REL * scale, rtol=BF16_REL))
-                assert torch.allclose(got.float(), want.float(), **tol), (
-                    f"fused_layer_eval {dtype_name}: max err {diff:.3e} (scale {scale:.3e})")
-                if want_s is not None:
-                    assert torch.equal(got_s, want_s), "fused_layer_eval shortcut differs"
+                err = max(err, check_call("fused_layer_eval", fused_layer_eval,
+                                          fused_layer_eval_plain, args, kw,
+                                          label=f"fused_layer_eval {dtype_name}"))
             ms = cuda_ms(lambda: [fused_layer_eval(*a, **k) for a, k in calls])
             plain_ms = cuda_ms(lambda: [fused_layer_eval_plain(*a, **k) for a, k in calls],
                                reps=3)
@@ -1570,6 +2121,12 @@ def main() -> int:
     graphs_phase(cfg, batch, batch2, models, eager_launches, valid)
     del models, batch2
     bench_phase()
+
+    # ---- 13 entry: the user's entry points --------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
+                     fused_layer_eval=fused_layer_eval), smi)
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

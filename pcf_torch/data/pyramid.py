@@ -1,14 +1,44 @@
-"""Host-side multi-resolution pyramid builder (numpy + scipy cKDTree):
-per-scene grid subsampling and the three kNN edge sets per level, the
-numpy/scipy path of pcf_tpu/data/pyramid.py."""
+"""Host-side multi-resolution pyramid: per-scene grid subsampling
+and the three kNN edge sets per level, the port of pcf_tpu/data/pyramid.py.
+
+Grid subsampling and kNN run in the native C++ library (pcf_torch/native)
+where g++ builds it, else in numpy and scipy's cKDTree; PCF_NO_NATIVE=1 in
+the environment forces the numpy/scipy path. The two give the same voxels,
+in another order, and may break kNN ties differently. The choice is made at
+first use (use_native) and kept in the module flag _USE_NATIVE, which a
+caller may set beforehand.
+"""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from scipy.spatial import cKDTree
 
-from pcf_torch.ops.subsample import grid_subsampling
+from pcf_torch import native as native_lib
+from pcf_torch.ops.subsample import grid_subsampling as _np_grid_subsampling
 from pcf_torch.ops.window import morton_argsort
+
+_USE_NATIVE: bool | None = None  # None: decided at the first use_native()
+
+
+def use_native() -> bool:
+    """Whether the pyramid takes the native library: unless PCF_NO_NATIVE=1,
+    where g++ exists (this builds the library, or raises if its build
+    fails). Decided once per process, unless _USE_NATIVE was set."""
+    global _USE_NATIVE
+    if _USE_NATIVE is None:
+        _USE_NATIVE = os.environ.get("PCF_NO_NATIVE") != "1" and native_lib.is_available()
+    return _USE_NATIVE
+
+
+def grid_subsampling(points, features=None, labels=None, sampleDl=0.1):
+    """Voxel-barycenter subsampling: the native library's, or numpy's
+    (ops/subsample.py); the same voxels, up to their order."""
+    if use_native():
+        return native_lib.grid_subsample(points, features, labels, sampleDl)
+    return _np_grid_subsampling(points, features, labels, sampleDl)
 
 
 def compute_knn(
@@ -25,10 +55,13 @@ def compute_knn(
     if num_ref < K or num_ref < dilated_rate * K:
         rng = rng or np.random.default_rng()
         return rng.integers(0, num_ref, size=(query_points.shape[0], K)).astype(np.int32)
-    tree = cKDTree(ref_points)
-    _, idx = tree.query(query_points, k=K * dilated_rate)
-    if K * dilated_rate == 1:
-        idx = idx[:, None]
+    if use_native():
+        idx = native_lib.knn(ref_points, query_points, K * dilated_rate)
+    else:
+        tree = cKDTree(ref_points)
+        _, idx = tree.query(query_points, k=K * dilated_rate)
+        if K * dilated_rate == 1:
+            idx = idx[:, None]
     if dilated_rate > 1:
         idx = idx[:, ::dilated_rate]
     return np.ascontiguousarray(idx, dtype=np.int32)

@@ -26,7 +26,14 @@ Pools: every graph has its own, since its static outputs (and a train
 graph's gradients) stay live in it between replays; a capture reserves new
 segments for it, so the memory reserved across a capture is its pool. Each
 Compiled keeps its capture's time, its pool's size and the bytes live in
-it.
+it. A graph's pool stays reserved while the graph lives, where jax.jit's
+executables hold no memory between calls, and every new signature (a scene
+packed under no level caps, an unpinned training batch) captures a new
+graph. So a StepGraphs holds its graphs' pools to a budget, POOL_BUDGET_BYTES
+or else a quarter of the card's memory: after a capture, the least recently used
+graphs are dropped until the pools of those left fit it (the graph just
+captured always stays). A dropped graph's pool goes back to the allocator,
+and its signature is captured anew at its next call.
 
 A graph reads every tensor that it did not allocate (weights, optimizer
 state, the derived weights of ops/kernels/derived.py) at the address it had
@@ -51,6 +58,10 @@ import torch
 
 from pcf_torch.core.batching import PackedPyramid
 
+# the pools a StepGraphs may hold, in bytes; None: a quarter of the card's
+# memory
+POOL_BUDGET_BYTES: int | None = None
+
 
 @dataclass
 class Compiled:
@@ -69,14 +80,16 @@ class Compiled:
 class StepGraphs:
     """The graphs of one step function, by (program, signature): `program`
     is what the host reads besides the batch that changes the step (the
-    model, its dtypes and options), `signature` the batch's. `captures` and
-    `replays` count what the cache did."""
+    model, its dtypes and options), `signature` the batch's. `captures`,
+    `replays` and `evictions` (graphs dropped for the pool budget) count
+    what the cache did."""
 
     def __init__(self):
-        self.entries: dict = {}
+        self.entries: dict = {}  # in order of last use, the most recent last
         self.stamps: dict = {}
         self.captures = 0
         self.replays = 0
+        self.evictions = 0
 
     def run(self, program, signature, stamp, body: Callable[[PackedPyramid], Any],
             batch: PackedPyramid, device: torch.device,
@@ -97,17 +110,45 @@ class StepGraphs:
             return entry.outputs, True
         static = batch.to(device).clone()
         outputs = body(static)
-        self.entries[(program, signature)] = self._capture(body, static, device, generator,
-                                                           keep)
+        key = (program, signature)
+        self.entries[key] = self._capture(body, static, device, generator, keep)
+        self._fit_budget(key, device)
         return outputs, False
 
     def lookup(self, program, signature, stamp) -> Compiled | None:
         """The graph of (program, signature), if one was captured under
-        `stamp`; the program's graphs of another stamp are dropped."""
+        `stamp`, now the most recently used; the program's graphs of another
+        stamp are dropped."""
         if self.stamps.get(program) != stamp:
             self.entries = {k: v for k, v in self.entries.items() if k[0] != program}
             self.stamps[program] = stamp
-        return self.entries.get((program, signature))
+        entry = self.entries.pop((program, signature), None)
+        if entry is not None:
+            self.entries[(program, signature)] = entry
+        return entry
+
+    def pool_bytes(self) -> int:
+        """The memory reserved for the pools of the graphs held now."""
+        return sum(e.pool_bytes for e in self.entries.values())
+
+    @staticmethod
+    def budget_bytes(device) -> int:
+        """The pool budget on `device`: POOL_BUDGET_BYTES, or a quarter of
+        the card's memory."""
+        if POOL_BUDGET_BYTES is not None:
+            return POOL_BUDGET_BYTES
+        return torch.cuda.get_device_properties(device).total_memory // 4
+
+    def _fit_budget(self, newest, device) -> None:
+        """Drop the least recently used graphs, never `newest`, until the
+        pools of those left fit the budget."""
+        budget = self.budget_bytes(device)
+        for key in list(self.entries):
+            if self.pool_bytes() <= budget:
+                break
+            if key != newest:
+                del self.entries[key]
+                self.evictions += 1
 
     def _capture(self, body, static, device, generator, keep) -> Compiled:
         """Capture body(static) on a side stream into a graph with a pool of

@@ -106,16 +106,23 @@ class Optimizer:
         weights_written(self.params)  # the fused optimizers move no _version
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "inner": self.inner.state_dict(),
+        return {"kind": self.kind, "count": self.count, "inner": self.inner.state_dict(),
                 "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
         """Load in place: the LR tensor, the accumulation and every state
         tensor the optimizer already holds keep their addresses, which a
-        captured train step reads."""
+        captured train step reads. The state of another optimizer, or of
+        another accumulation, raises ValueError before anything is loaded."""
+        if state.get("kind", self.kind) != self.kind or (
+                (state["acc"] is None) != (self.acc is None)):
+            raise ValueError(
+                f"optimizer state of {state.get('kind')} (accumulating: "
+                f"{state['acc'] is not None}) does not fit {self.kind} (accumulating: "
+                f"{self.acc is not None})")
         held = [dict(self.inner.state.get(p, {})) for p in self.params]
-        self.count = state["count"]
         self.inner.load_state_dict(state["inner"])
+        self.count = state["count"]
         for group in self.inner.param_groups:
             group["lr"] = self.lr
         for p, old in zip(self.params, held):

@@ -38,6 +38,7 @@ from pcf_torch.nn.weightnet import WeightNet
 from pcf_torch.ops import vi_transform as t_vi
 from pcf_torch.ops.kernels.window_resolve import windowed_take_flat_plain
 from pcf_torch.ops.window import build_windows, windowed_take_flat
+import pcf_torch.data.pyramid as t_pyramid
 
 GRID = [0.3, 0.6, 1.2]
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -156,6 +157,7 @@ def test_model_flat_geom_matches_pcf_tpu():
     through the flat resolve once."""
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pyramid, "_USE_NATIVE", False)
+    mp.setattr(t_pyramid, "_USE_NATIVE", False)
     c, n, f, l = synthetic_scene(250, extent=4.0, num_classes=5, seed=3)
     kw = dict(bucket_multiple=128, window_tile=16, window_size=128)
     jb = j_pack([j_pyramid.scene_to_item(c, n, f, l, GRID, 8, 8, 8,

@@ -43,6 +43,7 @@ from pcf_torch.nn.fused import FusedConvLinear
 from pcf_torch.nn.norm import LinearBN
 from pcf_torch.ops.kernels.layer_eval import fused_layer_eval_plain
 from pcf_torch.ops.window import WindowedEdges, build_windows
+import pcf_torch.data.pyramid as t_pyramid
 
 N, M, K = 256, 128, 8
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -342,6 +343,7 @@ def small_model():
     affine parameters randomised; the port's batch from the same scene."""
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pyramid, "_USE_NATIVE", False)
+    mp.setattr(t_pyramid, "_USE_NATIVE", False)
     c, n, f, l = synthetic_scene(250, extent=4.0, num_classes=5, seed=3)
     kw = dict(bucket_multiple=128, window_tile=16, window_size=128)
     jb = j_pack([j_pyramid.scene_to_item(c, n, f, l, GRID, 8, 8, 8,

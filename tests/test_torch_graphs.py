@@ -38,9 +38,11 @@ from pcf_torch.entry import build_training
 from pcf_torch.ops.kernels import derived
 from pcf_torch.ops.kernels.layer_eval import packed_weights
 from pcf_torch.ops.kernels.pconv_fused import _bf16_weight, _training
+import pcf_torch.parallel.graphs as graphs_mod
 from pcf_torch.parallel.graphs import Compiled, StepGraphs
 from pcf_torch.parallel.mesh import make_eager_train_step, make_train_step
 from pcf_torch.train.state import make_optimizer
+import pcf_torch.data.pyramid as t_pyramid
 
 from test_torch_kernel_host import _layer
 from test_torch_train import _jcfg, _tcfg
@@ -76,6 +78,7 @@ def batches(monkeypatch_module):
     import pcf_tpu.data.pyramid as jp
 
     monkeypatch_module.setattr(jp, "_USE_NATIVE", False)
+    monkeypatch_module.setattr(t_pyramid, "_USE_NATIVE", False)
     pairs = {s: _scene_pair(s) for s in range(4)}
     caps = [max(a, b) for a, b in zip(_caps([pairs[s][1] for s in (0, 1)]),
                                       _caps([pairs[s][1] for s in (2, 3)]))]
@@ -192,6 +195,40 @@ def test_optimizer_loads_in_place():
     assert ttx.count == 2 and all(g["lr"] is ttx.lr for g in ttx.inner.param_groups)
     for k, v in ttx.inner.state[tw].items():
         assert v.data_ptr() == held[k] and torch.equal(v, saved[k]), k
+
+
+def test_optimizer_refuses_another_optimizers_state():
+    """The state of another optimizer or accumulation raises ValueError (the
+    trainer's cue for its warm start) and loads nothing."""
+    tw = torch.nn.Parameter(torch.ones(3, 2))
+    tx, _ = make_optimizer(_tcfg(optimizer="AdamW"), iter_per_epoch=1)
+    tx.init([tw])
+    for other in (dict(optimizer="SGD"), dict(optimizer="AdamW", accum_iter=2)):
+        otx, _ = make_optimizer(_tcfg(**other), iter_per_epoch=1)
+        otx.init([torch.nn.Parameter(torch.ones(3, 2))])
+        otx.count = 5
+        with pytest.raises(ValueError, match="does not fit AdamW"):
+            tx.load_state_dict(otx.state_dict())
+        assert tx.count == 0
+
+
+def test_graph_pools_kept_within_the_budget(monkeypatch):
+    """After a capture, the least recently used graphs (a replay makes a
+    graph the most recent) are dropped until the pools fit the budget; the
+    graph just captured always stays."""
+    monkeypatch.setattr(graphs_mod, "POOL_BUDGET_BYTES", 7)
+    graphs = StepGraphs()
+    assert graphs.lookup("p", "a", 0) is None
+    for sig in ("a", "b"):
+        graphs.entries[("p", sig)] = Compiled(None, None, None, (), 0.0, 3, 0)
+    assert graphs.lookup("p", "a", 0) is not None  # used: now after b
+    graphs.entries[("p", "c")] = Compiled(None, None, None, (), 0.0, 3, 0)
+    graphs._fit_budget(("p", "c"), None)
+    assert list(graphs.entries) == [("p", "a"), ("p", "c")] and graphs.evictions == 1
+    assert graphs.pool_bytes() == 6
+    monkeypatch.setattr(graphs_mod, "POOL_BUDGET_BYTES", 1)
+    graphs._fit_budget(("p", "c"), None)
+    assert list(graphs.entries) == [("p", "c")] and graphs.evictions == 2
 
 
 def _step_values(cfg, batch, seed, step_fn=make_eager_train_step):

@@ -1,8 +1,8 @@
-"""pcf_torch stands alone: no module of it, and nothing chip_smoke.py
-imports, loads jax, flax, optax or pcf_tpu (nor, at import, yaml); entry
-points default to the card and
-refuse to run without one; chip_smoke.py fails without the card or without
-the repository."""
+"""pcf_torch stands alone: no module of it (the native library's bindings,
+the ScanNet pipeline, the trainer and the evaluation among them), and nothing
+chip_smoke.py imports, loads jax, flax, optax or pcf_tpu (nor, at import,
+yaml); entry points default to the card and refuse to run without one;
+chip_smoke.py fails without the card or without the repository."""
 
 import os
 import shutil
@@ -21,6 +21,10 @@ import pcf_torch
 for m in pkgutil.walk_packages(pcf_torch.__path__, "pcf_torch."):
     importlib.import_module(m.name)
 import chip_smoke  # its module-level imports; main() needs the card
+missing = [m for m in ("pcf_torch.native", "pcf_torch.data.scannet", "pcf_torch.data.prepare",
+                       "pcf_torch.train.trainer", "pcf_torch.eval.simple", "pcf_torch.utils.cache")
+           if m not in sys.modules]
+assert not missing, missing
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pcf_tpu", "yaml"))
 assert not bad, bad

@@ -11,6 +11,8 @@ max-pool shortcut exact; the window scatter within 1e-5 of the output's
 scale in f32 (its atomics sum in another order) and one bf16 step in bf16.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -763,3 +765,71 @@ def test_bench_prints_its_keys(cuda):
     assert out["device"] == subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+@pytest.mark.parametrize("budget", [None, 1])
+def test_evaluate_graph_pools_stay_within_the_budget(cuda, tmp_path, monkeypatch, budget):
+    """eval.simple.evaluate over 3 scenes of different sizes, one signature
+    each, packed under no level caps, with fused_eval: a graph is captured
+    per signature. Under the default budget (a quarter of the card) every
+    graph stays; under a budget of 1 byte each capture drops the graphs
+    before it, so the pools held are only the newest graph's, and the
+    card's memory reserved after the run (the allocator's cache emptied)
+    holds the newest pool and not the pools of the graphs dropped."""
+    import gc
+
+    import pcf_torch.parallel.graphs as graphs_mod
+    import pcf_torch.parallel.mesh as mesh_mod
+    from pcf_torch.data.synthetic import synthetic_scene
+    from pcf_torch.eval.simple import evaluate
+    from pcf_torch.utils.memory import graph_pool_bytes
+
+    os.makedirs(tmp_path / "val")
+    for i, n in enumerate((2000, 4000, 8000)):
+        coord, norm, feats, labels = synthetic_scene(n, extent=6.0, seed=i)
+        np.savez(tmp_path / "val" / f"scene{i}.npz", coords=coord,
+                 feats=np.concatenate([feats, norm], 1), labels=labels, name=f"scene{i}")
+    cfg, _ = _entry(cuda)
+    cfg.update(fused_eval=True, window_sizes=(512, 1280, 384),
+               val_data_path=str(tmp_path / "val" / "*.npz"), eval_path=str(tmp_path / "out"))
+    made, captured = [], []
+
+    def make_eval_step(*a, **kw):
+        step = make(*a, **kw)
+        made.append(step)
+        return step
+
+    def capture(graphs, *a, **kw):
+        compiled = real_capture(graphs, *a, **kw)
+        captured.append(compiled.pool_bytes)
+        return compiled
+
+    make, real_capture = mesh_mod.make_eval_step, graphs_mod.StepGraphs._capture
+    monkeypatch.setattr(mesh_mod, "make_eval_step", make_eval_step)
+    monkeypatch.setattr(graphs_mod.StepGraphs, "_capture", capture)
+    if budget is not None:
+        monkeypatch.setattr(graphs_mod, "POOL_BUDGET_BYTES", budget)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(cuda)
+    evaluate(cfg, write_outputs=False, device=cuda)
+    gc.collect()  # dropped graphs keep their pools until cyclic garbage goes
+    torch.cuda.empty_cache()
+    grown = torch.cuda.memory_reserved(cuda) - reserved
+    g = made[-1].graphs
+    pools = graph_pool_bytes(g)
+    print(f"evaluate over 3 signatures, budget {g.budget_bytes(cuda)}: {pools}, "
+          f"captures {g.captures}, evictions {g.evictions}; pools captured {captured}, "
+          f"memory reserved grew by {grown}")
+    assert g.captures == 3 and g.replays == 3 and len(captured) == 3
+    assert grown >= pools["pool_bytes"]
+    if budget is None:
+        assert g.evictions == 0 and pools["graphs"] == 3
+        assert pools["pool_bytes"] <= g.budget_bytes(cuda)
+    else:
+        assert g.evictions == 2 and pools["graphs"] == 1
+        assert pools["pool_bytes"] == list(g.entries.values())[-1].pool_bytes == captured[-1]
+        # the two dropped pools went back to the card: what stays reserved
+        # besides the newest pool (the model, the static batches) is less
+        # than they held
+        assert grown - captured[-1] < sum(captured[:-1]), (grown, captured)

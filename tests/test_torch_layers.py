@@ -24,6 +24,7 @@ from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item
 from pcf_torch.nn import layers as t_layers
 from pcf_torch.nn.norm import MaskedBatchNorm as TBN
+import pcf_torch.data.pyramid as t_pyramid
 
 GRID = [0.3, 0.6, 1.2]
 # f32 on both sides; the two differ only in summation order
@@ -41,6 +42,7 @@ def _cfg(cls, defaults, fused):
 def batches():
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pyramid, "_USE_NATIVE", False)
+    mp.setattr(t_pyramid, "_USE_NATIVE", False)
     coord, norm, feats, labels = synthetic_scene(250, extent=4.0, num_classes=5, seed=3)
     kw = dict(bucket_multiple=128, window_tile=16, window_size=128)
     args = (coord, norm, feats, labels, GRID, 8, 8, 8)

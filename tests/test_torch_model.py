@@ -21,6 +21,7 @@ from pcf_torch.convert import load_jax_variables
 from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item, synthetic_scene
 from pcf_torch.entry import build
+import pcf_torch.data.pyramid as t_pyramid
 
 GRID = [0.3, 0.6, 1.2]
 # the tolerance tests/test_pallas_model.py holds between pcf_tpu's own paths
@@ -46,6 +47,7 @@ def pair(monkeypatch_module):
     import pcf_tpu.data.pyramid as jp
 
     monkeypatch_module.setattr(jp, "_USE_NATIVE", False)
+    monkeypatch_module.setattr(t_pyramid, "_USE_NATIVE", False)
     kw = dict(window_tile=16, window_size=128)
     c, n, f, l = j_scene(250, extent=4.0, num_classes=5, seed=3)
     jb = j_pack([j_item(c, n, f, l, GRID, 8, 8, 8, rng=np.random.default_rng(3),

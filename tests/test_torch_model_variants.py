@@ -23,6 +23,7 @@ from pcf_torch.convert import load_jax_variables
 from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item, synthetic_scene
 from pcf_torch.entry import build
+import pcf_torch.data.pyramid as t_pyramid
 
 from test_torch_model import ATOL, GRID, RTOL, _args, _cfg
 
@@ -40,6 +41,7 @@ def batches():
     """test_torch_model.py's windowed batch, packed by each package."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jp, "_USE_NATIVE", False)
+    mp.setattr(t_pyramid, "_USE_NATIVE", False)
     kw = dict(window_tile=16, window_size=128)
     c, n, f, l = j_scene(250, extent=4.0, num_classes=5, seed=3)
     jb = j_pack([j_item(c, n, f, l, GRID, 8, 8, 8, rng=np.random.default_rng(3),

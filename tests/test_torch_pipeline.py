@@ -32,6 +32,7 @@ GRID = [0.3, 0.6, 1.2]
 @pytest.fixture(autouse=True)
 def numpy_pyramid(monkeypatch):
     monkeypatch.setattr(j_pyramid, "_USE_NATIVE", False)
+    monkeypatch.setattr(t_pyramid, "_USE_NATIVE", False)
 
 
 def _same(a, b):

@@ -34,6 +34,7 @@ from pcf_torch.data import scene_to_item, synthetic_scene
 from pcf_torch.entry import build, build_training
 from pcf_torch.train.loss import cross_entropy_loss
 from pcf_torch.train.state import create_train_state, make_optimizer
+import pcf_torch.data.pyramid as t_pyramid
 
 from test_torch_train import GRID, _jcfg, _tcfg
 
@@ -61,6 +62,7 @@ def pair(monkeypatch_module):
     import pcf_tpu.data.pyramid as jp
 
     monkeypatch_module.setattr(jp, "_USE_NATIVE", False)
+    monkeypatch_module.setattr(t_pyramid, "_USE_NATIVE", False)
     kw = dict(window_tile=16, window_size=128)
     c, n, f, l = j_scene(250, extent=4.0, num_classes=5, seed=3)
     jb = j_pack([j_item(c, n, f, l, GRID, 8, 8, 8, rng=np.random.default_rng(3),

@@ -21,6 +21,7 @@ import pcf_torch.models.zoo as tzoo
 from pcf_torch.convert import load_jax_variables
 from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item, synthetic_scene
+import pcf_torch.data.pyramid as t_pyramid
 
 from ref_loader import translate_key
 
@@ -116,6 +117,7 @@ def tiny_scene():
 
     mp = pytest.MonkeyPatch()
     mp.setattr(jp, "_USE_NATIVE", False)
+    mp.setattr(t_pyramid, "_USE_NATIVE", False)
     grid = tzoo.PCF_Tiny(0.1)[1].grid_size
     c, n, f, l = j_scene(2000, extent=3.0, num_classes=5, seed=4)
     jb = j_pack([j_item(c, n, f, l, grid, 16, 16, 16, rng=np.random.default_rng(4))],
