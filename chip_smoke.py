@@ -114,7 +114,34 @@ Phases (any failure exits non-zero, before the last line is printed):
              forward (same_as_eager), its RMS distance from the f32
              standard forward against the eager standard bf16 forward's
              (FUSED_BF16_WITNESS), the fold on the trained weights in
-             f32 at FOLD_TOL, replay ms and points/s per scene.
+             f32 at FOLD_TOL, replay ms and points/s per scene;
+ 14 pyramid  the device pyramid (data/post_knn.py) and voting on the card:
+             pcf_tpu/configs/post_knn_10cm.yaml built in code
+             (phase14_config: PCF_Normal at the flagship width, f32,
+             BATCH_SIZE 16, pinned level caps), 128 + 4 synthetic rooms
+             (8-step epochs). The loader's host s per batch for the host
+             pyramid, post_knn and device_pyramid; one device_pyramid
+             batch's pyramid built on the card (build_pyramid_packed, the
+             post_knn loader's caps), each level's per-scene voxel counts
+             equal to the host grid_subsampling's and its barycenters within
+             PYRAMID_ATOL, no overflow; each of its 13 kNN calls captured and
+             replayed (ms and distance entries), against the port's kNN on
+             the CPU scene by scene (distances within KNN_DIST_REL of the
+             scale, neighbour sets equal where not tied at k) and
+             KNN_SAMPLED queries against float64, and timed restricted to
+             each scene's own rows; trainer.main under post_knn, then
+             device_pyramid: B and C launched, A, D and E never, every eager
+             B and C call against its plain version, finite losses, the
+             checkpoint equal to main's state, the prepare graph captured
+             once and replayed for every later batch, main's s/it from its
+             third step against the step's and the prepare's replay
+             medians; B's and C's nei-mode calls of one eval forward timed
+             beside their plain versions and bounds; eval.simple.evaluate
+             under device_pyramid (replay ms per scene, scene 0's logits
+             against the CPU at MODEL_TOL); eval.voting.evaluate_voting under
+             device_pyramid, PYRAMID_VOTES rotations: every raw point voted,
+             scene 0's probabilities against the CPU's within VOTE_ATOL, the
+             wall, device+dispatch and host job times, captures per caps key.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -142,6 +169,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
@@ -188,9 +216,10 @@ TRAIN_WITNESS = 2.0
 # pcf_tpu's two paths of the whole model
 FOLD_TOL = dict(atol=1e-2, rtol=1e-2)
 # phase 12: a replay's logits against the eager forward's, of the logits'
-# scale. B, C and E add the partial outputs of split channel ranges with f32
+# scale. B and C add the partial outputs of split channel ranges with f32
 # atomics, in another order each run, so two eager forwards differ too; the
-# replay runs the same kernels on the same inputs. f32: two eager forwards
+# replay runs the same kernels on the same inputs (E adds its ranges in a
+# fixed order: its replays equal its eager forwards). f32: two eager forwards
 # differ by up to 4e-7 of the scale on the H100. bf16: a bf16 rounding flips
 # on those last bits, and two eager forwards differ by up to 7e-3 of the
 # scale, about one bf16 step of the largest logit (2^-7); held to four steps.
@@ -321,9 +350,10 @@ class EagerRecorder(KwRecorder):
         return self.fn(*args, **kw)
 
 
-def check_call(name, kern, plain, args, kw=None, label=None) -> float:
+def check_call(name, kern, plain, args, kw=None, label=None, rows=None) -> float:
     """One call of a kernel's wrapper `kern` against its plain version on
-    the same inputs; returns the max abs error. window_resolve bit-exact;
+    the same inputs; returns the max abs error; with `rows` (a bool mask
+    over the output's rows) on those rows alone. window_resolve bit-exact;
     B, C and E (pcf_conv_linear, pconv_pe_conv_linear, fused_layer_eval)
     within F32_TOL for float32 inputs, else within BF16_REL of the output's
     scale, E's max-pool shortcut exact; D (window_scatter) within
@@ -341,6 +371,8 @@ def check_call(name, kern, plain, args, kw=None, label=None) -> float:
         if want_s is not None:
             assert torch.equal(got_s, want_s), f"{label}: the shortcut differs"
     got, want = got.float(), want.float()
+    if rows is not None:
+        got, want = got[rows], want[rows]
     scale = want.abs().max().item()
     diff = (got - want).abs().max().item()
     if name == "window_scatter":
@@ -355,9 +387,10 @@ def check_call(name, kern, plain, args, kw=None, label=None) -> float:
     return diff
 
 
-def replay_against_plain(recs) -> dict:
+def replay_against_plain(recs, rows_of=None) -> dict:
     """Every call the EagerRecorders `recs` kept against its plain version
-    (check_call). Returns {wrapper name: (calls, max abs err)}."""
+    (check_call), on the rows rows_of(name, index, args) gives (all rows
+    where it gives None). Returns {wrapper name: (calls, max abs err)}."""
     from pcf_torch.ops.kernels.layer_eval import fused_layer_eval, fused_layer_eval_plain
     from pcf_torch.ops.kernels.pconv_fused import (
         pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
@@ -374,8 +407,10 @@ def replay_against_plain(recs) -> dict:
     with torch.no_grad():
         for name, (kern, plain) in pairs.items():
             calls = [c for r in recs if r.name == name for c in r.calls]
-            out[name] = (len(calls), max((check_call(name, kern, plain, a, kw)
-                                          for a, kw in calls), default=0.0))
+            out[name] = (len(calls), max(
+                (check_call(name, kern, plain, a, kw,
+                            rows=None if rows_of is None else rows_of(name, i, a))
+                 for i, (a, kw) in enumerate(calls)), default=0.0))
     return out
 
 
@@ -419,6 +454,29 @@ def forward_peak(fn) -> tuple[int, int]:
     fn()
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated(), resident
+
+
+def conv_cost(kname, args) -> tuple[int, int]:
+    """(bytes, operations) of one call of kernel B (pcf_conv_linear) or C
+    (pconv_pe_conv_linear): table, indices, guidance or PE rows, weights and
+    the linear read once, the f32 output written once; the contraction, the
+    projection and B's guidance products."""
+    from pcf_torch.ops.window import WindowedEdges
+
+    feats, edges, extra, v, lw, lb = args
+    M, K, W = v.shape
+    C = feats.shape[1]
+    E = 0 if extra is None else extra.shape[-1]
+    Ct = C if kname == "pcf_conv_linear" else C + E
+    idx = (edges.window_rows.numel() + edges.localT.numel()
+           if isinstance(edges, WindowedEdges) else edges.numel())
+    isz = feats.element_size()
+    b = (feats.numel() * isz + idx * 4 + M * K * (E + W) * isz
+         + (lw.numel() + lb.numel()) * 4 + M * lw.shape[1] * 4)
+    ops = 2 * M * K * Ct * W + 2 * M * Ct * W * lw.shape[1]
+    if kname == "pcf_conv_linear":
+        ops += M * K * C
+    return b, ops
 
 
 def layer_eval_cost(args, kw) -> tuple[int, int]:
@@ -1034,16 +1092,19 @@ ENTRY_REPLAY_WARMUP, ENTRY_REPLAY_REPS = 2, 5
 # standard bf16 forward, to the f32 standard forward of the same weights:
 # its RMS error over the valid logits at most FUSED_BF16_WITNESS times the
 # standard bf16 forward's. The two bf16 forwards round at other places (the
-# folded weights, each layer's output), and each adds channel splits with
-# f32 atomics, so their distance from each other grows with the
-# activations: on the H100 it read 0.7e-2 to 1.1e-2 of the logit scale
-# after 6 training steps (logits near 2) and 2.1e-2 to 3.3e-2 after 32
-# (logits of 40-190), where two eager fused_eval forwards already differed
-# by 1.1e-2. Against f32, the largest error of the fused replay read 0.80
-# to 1.48 times the standard forward's over 4 scenes; the RMS, the gate,
-# averages out which logit happens to round worst. A layer gone wrong
-# moves the logits by their whole scale; each E call of the evaluation is
-# also held to its plain version.
+# folded weights, each layer's output), so their distance from each other
+# grows with the activations: on the H100 it read 0.7e-2 to 1.1e-2 of the
+# logit scale after 6 training steps (logits near 2) and 2.1e-2 to 3.3e-2
+# after 32 (logits of 40-190). Against f32, the largest error of the fused
+# replay read 0.80 to 1.48 times the standard forward's over 4 scenes; the
+# RMS, the gate, averages out which logit happens to round worst. The
+# ratio spreads with each run's trained weights
+# (tools/torch_fused_bf16_spread.py): with E rounding its MLPs, scores and
+# products to bf16, as pcf_tpu's kernel does, it read up to 2.49 in full
+# runs; over 12 scenes of 3 runs, 0.53-1.75 for that rounding and 0.35-1.23
+# for E as it is (PERF.md). A layer gone wrong moves the logits by their
+# whole scale; each E call of the evaluation is also held to its plain
+# version.
 FUSED_BF16_WITNESS = 2.0
 
 
@@ -1164,6 +1225,45 @@ def eager_recorders() -> list:
             EagerRecorder(fused_eval_mod, "fused_layer_eval")]
 
 
+KERNEL_LETTERS = {"window_resolve": "A", "pcf_conv_linear": "B", "pconv_pe_conv_linear": "C",
+                  "window_scatter": "D", "window_resolve_flat": "flat", "fused_layer_eval": "E"}
+
+
+def launch_split(counts, captured) -> str:
+    """Launches per kernel, split into eager ones and those inside captures."""
+    return ", ".join(f"{KERNEL_LETTERS[k]} {n} ({n - captured[k]} eager, {captured[k]} in "
+                     f"captures)" for k, n in counts.items())
+
+
+def held_to_plain(tag, label, recs, counts, captured, rows_of=None):
+    """The eager calls the EagerRecorders `recs` kept: one for each launch
+    outside a capture, each against its plain version (check_call, on the
+    rows of rows_of)."""
+    for r in recs:
+        r.restore()
+    for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear",
+              "window_scatter", "fused_layer_eval"):
+        kept = sum(len(r.calls) for r in recs if r.name == k)
+        assert kept == counts[k] - captured[k], (
+            f"{label}: {kept} {k} calls kept, {counts[k] - captured[k]} launched eagerly")
+    res = replay_against_plain(recs, rows_of)
+    log(f"{tag} {label}: every eager kernel call against its plain version: " + "; ".join(
+        f"{KERNEL_LETTERS[k]} {n} calls, " + ("bit-exact" if k == "window_resolve" else
+                                              f"max abs err {e:.3e}")
+        for k, (n, e) in res.items() if n))
+    return res
+
+
+def graph_pools(step) -> str:
+    """A step function's graphs: held, pool, captures, replays, evictions."""
+    from pcf_torch.utils.memory import graph_pool_bytes
+
+    g = graph_pool_bytes(step.graphs)
+    return (f"{g['graphs']} graph(s) held, pool {g['pool_bytes'] / 2**20:.1f} MiB "
+            f"({g['live_bytes'] / 2**20:.1f} MiB live), captures {step.graphs.captures}, "
+            f"replays {step.graphs.replays}, evictions {step.graphs.evictions}")
+
+
 def entry_phase(wrappers, smi, device="cuda"):
     """Phase 13: trainer.main and eval.simple.evaluate on the card (see the
     module docstring); the entry points take their default device, the
@@ -1179,34 +1279,10 @@ def entry_phase(wrappers, smi, device="cuda"):
     from pcf_torch.train.checkpoint import CheckpointManager
     from pcf_torch.utils.memory import graph_pool_bytes
 
-    names = {"window_resolve": "A", "pcf_conv_linear": "B", "pconv_pe_conv_linear": "C",
-             "window_scatter": "D", "window_resolve_flat": "flat", "fused_layer_eval": "E"}
-
-    def split(counts, captured):
-        return ", ".join(f"{names[k]} {n} ({n - captured[k]} eager, {captured[k]} in "
-                         f"captures)" for k, n in counts.items())
+    split, pools = launch_split, graph_pools
 
     def eager_calls_held(label, recs, counts, captured):
-        """The eager calls `recs` kept: one for each launch outside a
-        capture, each against its plain version (check_call)."""
-        for r in recs:
-            r.restore()
-        for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear",
-                  "window_scatter", "fused_layer_eval"):
-            kept = sum(len(r.calls) for r in recs if r.name == k)
-            assert kept == counts[k] - captured[k], (
-                f"{label}: {kept} {k} calls kept, {counts[k] - captured[k]} launched eagerly")
-        res = replay_against_plain(recs)
-        log(f"[entry] {label}: every eager kernel call against its plain version: " + "; ".join(
-            f"{names[k]} {n} calls, " + ("bit-exact" if k == "window_resolve" else
-                                         f"max abs err {e:.3e}")
-            for k, (n, e) in res.items() if n))
-
-    def pools(step) -> str:
-        g = graph_pool_bytes(step.graphs)
-        return (f"{g['graphs']} graph(s) held, pool {g['pool_bytes'] / 2**20:.1f} MiB "
-                f"({g['live_bytes'] / 2**20:.1f} MiB live), captures {step.graphs.captures}, "
-                f"replays {step.graphs.replays}, evictions {step.graphs.evictions}")
+        held_to_plain("[entry]", label, recs, counts, captured)
 
     def train_gates(label, cfg, rec, unpinned=False):
         counts, captured = rec.counts(), dict(rec.in_capture)
@@ -1457,6 +1533,571 @@ def entry_phase(wrappers, smi, device="cuda"):
         f"{unpinned_pool / 2**20:.1f} MiB, evaluate {eval_pool / 2**20:.1f} MiB")
 
 
+# pcf_tpu/configs/post_knn_10cm.yaml, key for key, built in code (the card's
+# machine has no yaml)
+POST_KNN_10CM = dict(
+    BATCH_NORM=True, BATCH_SIZE=16, NUM_WORKERS=0, USE_XYZ=True, USE_PE=True, USE_WEIGHT=True,
+    manual_seed=1, sync_bn=True, print_freq=5, eval_freq=5, save_freq=5, MAX_POINTS_NUM=550000,
+    K_forward=[16] * 5, K_propagate=[16] * 5, K_self=[16] * 5, point_dim=3, total_epoches=300,
+    num_level=5, grid_size=[0.1, 0.2, 0.4, 0.8, 1.6], base_dim=64,
+    feat_dim=[64, 128, 192, 256, 384], mid_dim=[16] * 5, mid_dim_back=1, guided_level=0,
+    num_heads=8, resblocks=[0, 2, 4, 6, 6], resblocks_back=[0] * 5,
+    train_data_path="./data/ScanNet_withNewNormal/train/*.pth",
+    val_data_path="./data/ScanNet_withNewNormal/val/*.pth",
+    test_data_path="./data/ScanNet_withNewNormal/test/*.pth", optimizer="AdamW",
+    adamw_decay=0.05, learning_rate=0.02, gamma=0.5, label_smoothing=0.2,
+    scheduler="MultiStepWithWarmup", milestones=[80, 140, 180, 220, 260], decay_rate=0.0001,
+    ignore_label=-100, drop_path_rate=0.0, dropout_rate=0.0, dropout_fc=0.0,
+    layer_norm_guidance=False, scheduler_update="step", warmup="linear", warmup_epochs=10,
+    warmup_ratio=1.0e-05, model_name="PCF_TPU_10cm_postknn", experiment_dir="./experiment_10cm/",
+    eval_path="./evaluation_10cm/", num_classes=20,
+    classes=["wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door", "window",
+             "bookshelf", "picture", "counter", "desk", "curtain", "refridgerator",
+             "shower curtain", "toilet", "sink", "bathtub", "otherfurniture"],
+    bucket_multiple=8192, USE_PALLAS_KERNEL=False,
+    _comment="10cm with on-device kNN after batching (reference Config_post_knn_10cm.yaml)",
+    post_knn=True)
+# phase 14's rooms: tools/make_synth_dataset.py at its 15,000 points a room;
+# 128 training rooms make an 8-step epoch at BATCH_SIZE 16
+PYRAMID_TRAIN_ROOMS, PYRAMID_VAL_ROOMS = 128, 4
+# phase 14: voting's rotations (pcf_tpu's default is 8; cut for time)
+PYRAMID_VOTES = 2
+# phase 14 kNN, card against CPU: distances within KNN_DIST_REL of the call's
+# largest; a row's index set equal wherever its k-th and (k+1)-th distances
+# differ by more than KNN_TIE_REL (relative); KNN_SAMPLED queries a call
+# against a float64 brute force
+KNN_DIST_REL, KNN_TIE_REL, KNN_SAMPLED = 1e-5, 1e-6, 1024
+# phase 14: the device pyramid's barycenters against the host's, after
+# sorting (tests/test_post_knn.py:146)
+PYRAMID_ATOL = 1e-4
+# phase 14: voting's probabilities, card against CPU (the port's tolerance
+# against pcf_tpu in tests/test_torch_voting.py)
+VOTE_ATOL = 1e-4
+
+
+def phase14_config(data_dir: str, exp_dir: str):
+    """Phase 14's configuration: POST_KNN_10CM with the defaults that
+    pcf_torch.config.load_config fills, and these overrides (PERF.md section
+    4): the fused conv kernels B and C on every conv layer; pinned level
+    caps (synth_flagship's sample and margin), so that an epoch has one
+    signature; the data, the experiment and the evaluation under the
+    phase's temporary directory; one epoch, validated and saved; the
+    synthetic rooms' 8 classes."""
+    from pcf_torch.config import Config, get_default_configs, get_default_training_cfgs
+
+    cfg = Config.from_dict(POST_KNN_10CM)
+    cfg = get_default_training_cfgs(get_default_configs(cfg, cfg.num_level, cfg.base_dim))
+    cfg.config = "pcf_tpu/configs/post_knn_10cm.yaml"
+    cfg.update(USE_PALLAS_KERNEL=True, fused_min_points=0, pin_level_caps=True,
+               level_caps_sample=8, level_caps_margin=1.15,
+               train_data_path=os.path.join(data_dir, "train", "*.npz"),
+               val_data_path=os.path.join(data_dir, "val", "*.npz"),
+               test_data_path=os.path.join(data_dir, "val", "*.npz"),
+               experiment_dir=exp_dir, eval_path=os.path.join(exp_dir, "eval"),
+               total_epoches=1, eval_freq=1, save_freq=1,
+               num_classes=SYNTH_FLAGSHIP["num_classes"], classes=SYNTH_FLAGSHIP["classes"])
+    return cfg
+
+
+class PrepareRecorder:
+    """Wraps data/post_knn.make_prepare where the entry points look it up:
+    every prep made is kept, with each call's input batch (on the CPU, as
+    the loader gives it), start and host ms."""
+
+    def __init__(self):
+        import pcf_torch.data.post_knn as post_knn_mod
+
+        self.module, self.make = post_knn_mod, post_knn_mod.make_prepare
+        self.preps = []
+        post_knn_mod.make_prepare = self._make
+
+    def _make(self, cfg):
+        prep = self.make(cfg)
+        calls = []
+
+        def recorded(batch, device):
+            t = time.perf_counter()
+            out = prep(batch, device)
+            calls.append(dict(batch=batch, start=t, ms=(time.perf_counter() - t) * 1e3))
+            return out
+
+        recorded.graphs, recorded.calls, recorded.cfg = prep.graphs, calls, cfg
+        self.preps.append(recorded)
+        return recorded
+
+    def restore(self):
+        self.module.make_prepare = self.make
+
+
+def host_times(fn, warmup: int, reps: int) -> list:
+    """Host seconds of fn() ended by a synchronize, `reps` runs after warm-up."""
+    out = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            out.append(time.perf_counter() - t)
+    return out
+
+
+def graph_ms(fn, reps=3):
+    """(outputs of the last replay, device ms per replay): fn captured once
+    into a CUDA graph (after an eager warm-up run) and replayed, timed as
+    cuda_ms times; the graph is dropped after. cuBLAS's per-stream
+    workspace is dropped around the capture, as parallel/graphs.py does, so
+    that no later matmul takes the one this graph's pool held."""
+    fn()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    ms = cuda_ms(g.replay, reps=reps, warmup=1)
+    del g
+    torch._C._cuda_clearCublasWorkspaces()
+    return out, ms
+
+
+def valid_rows(step_calls):
+    """rows_of for held_to_plain: the valid output rows of each eager B and
+    C call the EagerRecorders kept, from the masks of the batch of the step
+    call that made it (the step calls in order; a call's level is the one
+    with its row count, when only one level has it). The device pyramid
+    pads its levels with points at 1e6, whose rows are masked everywhere
+    and carry values up to about 1e7, where f32 sums in another order
+    differ by more than F32_TOL."""
+    owners = {k: [c["batch"] for c in step_calls
+                  for _ in range(c["launches"].get(k, 0) - c["captured"].get(k, 0))]
+              for k in ("pcf_conv_linear", "pconv_pe_conv_linear")}
+
+    def rows_of(name, i, args):
+        if name not in owners:
+            return None
+        masks = [m for m in owners[name][i].masks if m.shape[0] == args[3].shape[0]]
+        return masks[0] if len(masks) == 1 else None
+
+    return rows_of
+
+
+def knn_calls(batch):
+    """The 13 kNN calls of compute_knn_packed on `batch`, as (label, query
+    level, ref level, k)."""
+    n = len(batch.points)
+    calls = []
+    for lvl in range(n):
+        calls.append((f"self {lvl}", lvl, lvl))
+        if lvl < n - 1:
+            calls.append((f"forward {lvl + 1}->{lvl}", lvl + 1, lvl))
+            calls.append((f"propagate {lvl}->{lvl + 1}", lvl, lvl + 1))
+    return calls
+
+
+def knn_check(batch, k, rng):
+    """Phase 14b: every kNN call of `batch` (on the card) in one CUDA graph
+    each, replayed and timed, its result against the port's kNN on the CPU
+    run scene by scene on the same points, and KNN_SAMPLED queries against a
+    float64 brute force; each call also timed restricted to its scenes' own
+    rows (the per-scene split). Returns (total replay ms, total own-scene
+    ms, total distance entries)."""
+    from pcf_torch.ops.knn import knn
+
+    tot_ms = tot_own = tot_entries = 0.0
+    for label, ql, rl in knn_calls(batch):
+        q, r = batch.points[ql], batch.points[rl]
+        qb, rb, rm = batch.bids[ql], batch.bids[rl], batch.masks[rl]
+        with torch.no_grad():
+            (idx, dist), ms = graph_ms(lambda: knn(q, r, k, query_bid=qb, ref_bid=rb,
+                                                   ref_mask=rm, return_dist=True))
+        idx, dist = idx.cpu().numpy(), dist.cpu().numpy()
+        qm = batch.masks[ql].cpu().numpy()
+        qbn, rbn, rmn = qb.cpu().numpy(), rb.cpu().numpy(), rm.cpu().numpy()
+        qp, rp = q.cpu(), r.cpu()
+        scenes = np.unique(qbn[qm])
+        scale = float(dist[qm].max())
+        own = []
+        worst = checked = tied = 0
+        for sc in scenes:
+            rows = np.nonzero(qm & (qbn == sc))[0]
+            refs = np.nonzero(rmn & (rbn == sc))[0]
+            own.append((torch.from_numpy(rows).to(q.device), torch.from_numpy(refs).to(q.device)))
+            ci, cd = knn(qp[rows], rp[refs], k + 1, return_dist=True)
+            ci, cd = refs[ci.numpy()], cd.numpy()
+            worst = max(worst, float(np.abs(dist[rows] - cd[:, :k]).max()))
+            distinct = cd[:, k] - cd[:, k - 1] > KNN_TIE_REL * np.maximum(cd[:, k], 1e-30)
+            got, want = np.sort(idx[rows], 1), np.sort(ci[:, :k], 1)
+            bad = np.nonzero(distinct & (got != want).any(1))[0]
+            assert not len(bad), (f"[pyramid] kNN {label} scene {sc}: {len(bad)} rows with "
+                                  f"another neighbour set, e.g. row {rows[bad[0]]}")
+            checked += int(distinct.sum())
+            tied += int((~distinct).sum())
+        assert worst <= KNN_DIST_REL * scale, (
+            f"[pyramid] kNN {label}: distances {worst:.3e} from the CPU's (scale {scale:.3e})")
+        # float64 brute force on sampled valid queries, against their own
+        # scene's valid refs (every other ref is invalid for them)
+        sample = rng.choice(np.nonzero(qm)[0], size=min(KNN_SAMPLED, int(qm.sum())),
+                            replace=False)
+        qnp, rnp = qp.numpy().astype(np.float64), rp.numpy().astype(np.float64)
+        f64_err, bad = 0.0, 0
+        for sc in np.unique(qbn[sample]):
+            rows = sample[qbn[sample] == sc]
+            refs = np.nonzero(rmn & (rbn == sc))[0]
+            d64 = ((qnp[rows][:, None, :] - rnp[refs][None, :, :]) ** 2).sum(-1)
+            order = np.argsort(d64, 1)[:, :k + 1]
+            part = np.take_along_axis(d64, order, 1)
+            f64_err = max(f64_err, float(np.abs(dist[rows] - part[:, :k]).max()))
+            distinct = part[:, k] - part[:, k - 1] > KNN_TIE_REL * part[:, k]
+            bad += int((distinct & (np.sort(idx[rows], 1)
+                                    != np.sort(refs[order[:, :k]], 1)).any(1)).sum())
+        assert f64_err <= KNN_DIST_REL * scale, (
+            f"[pyramid] kNN {label}: distances {f64_err:.3e} from float64 (scale {scale:.3e})")
+        assert not bad, f"[pyramid] kNN {label}: {bad} sampled rows differ from float64"
+        # the same call restricted to each query's own scene's rows
+        with torch.no_grad():
+            _, own_ms = graph_ms(lambda: [knn(q[a], r[b], k, return_dist=True)
+                                          for a, b in own])
+        entries = q.shape[0] * r.shape[0]
+        own_entries = sum(a.numel() * b.numel() for a, b in own)
+        tot_ms, tot_own, tot_entries = tot_ms + ms, tot_own + own_ms, tot_entries + entries
+        log(f"[pyramid] kNN {label}: M={q.shape[0]} N={r.shape[0]} k={k}, {entries:.3e} "
+            f"distance entries, replay {ms:.3f} ms ({entries / ms * 1e3 / 1e12:.3f} T "
+            f"entries/s); against the CPU per scene: "
+            f"max distance err {worst:.3e} (scale {scale:.3e}), {checked} rows' sets equal, "
+            f"{tied} rows tied at k; float64 on {len(sample)} queries: {f64_err:.3e}; "
+            f"restricted to each scene's own rows: {own_entries:.3e} entries, {own_ms:.3f} ms")
+    return tot_ms, tot_own, tot_entries
+
+
+def pyramid_phase(wrappers, smi, device="cuda"):
+    """Phase 14: the device pyramid and voting on the card (see the module
+    docstring); the entry points take their default device, the checks run
+    on `device`."""
+    from pcf_torch.data import post_knn as post_knn_mod
+    from pcf_torch.data.scannet import getdataLoaders
+    from pcf_torch.entry import build
+    from pcf_torch.eval.simple import evaluate
+    from pcf_torch.eval.voting import evaluate_voting
+    from pcf_torch.ops.subsample import grid_subsample_fixed, grid_subsampling
+    from pcf_torch.train import trainer
+    from pcf_torch.train.checkpoint import CheckpointManager
+    from scipy.spatial import cKDTree
+
+    t_phase = time.time()
+    rng = np.random.default_rng(14)
+    seconds = {}  # per section of the phase
+
+    def lap(name):
+        seconds[name] = round(time.time() - t_phase - sum(seconds.values()), 1)
+
+    zero = ("window_resolve", "window_scatter", "fused_layer_eval", "window_resolve_flat")
+    summary = {}
+
+    def kernels_gate(label, rec):
+        counts, captured = rec.counts(), dict(rec.in_capture)
+        log(f"[pyramid] {label}: launches {launch_split(counts, captured)}")
+        for k in ("pcf_conv_linear", "pconv_pe_conv_linear"):
+            assert counts[k] > 0, f"{label}: {k} was not launched"
+        for k in zero:
+            assert counts[k] == 0, f"{label}: {k} launched {counts[k]} times on plain edges"
+        return counts, captured
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pyramid_") as root:
+        data = os.path.join(root, "data")
+        t0 = time.time()
+        subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                      "tools", "make_synth_dataset.py"),
+                        "--out", data, "--train", str(PYRAMID_TRAIN_ROOMS),
+                        "--val", str(PYRAMID_VAL_ROOMS), "--points", str(ENTRY_ROOM_POINTS)],
+                       check=True, capture_output=True)
+        log(f"[pyramid] {PYRAMID_TRAIN_ROOMS} + {PYRAMID_VAL_ROOMS} synthetic rooms written in "
+            f"{time.time() - t0:.1f} s")
+
+        # -- e: the loader alone, one epoch per mode --------------------------
+        modes = {"host pyramid": dict(post_knn=False),
+                 "post_knn": dict(post_knn=True),
+                 "device_pyramid": dict(post_knn=False, device_pyramid=True)}
+        loader_s, caps, first = {}, {}, None
+        for mode, keys in modes.items():
+            cfg_l = phase14_config(data, os.path.join(root, "exp_loader"))
+            cfg_l.update(keys)
+            loader, _, _, _ = getdataLoaders(cfg_l)
+            caps[mode] = cfg_l.level_caps
+            n, t = 0, time.perf_counter()
+            for b in loader:
+                if first is None and mode == "device_pyramid":
+                    first = b
+                n += 1
+            loader_s[mode] = ((time.perf_counter() - t) / n, n)
+        log("[pyramid] loader (NUM_WORKERS 0), host s per packed batch: " + "; ".join(
+            f"{m}: {s:.4f} ({n} batches, caps {caps[m]})" for m, (s, n) in loader_s.items()))
+        summary["loader"] = loader_s
+        lap("rooms and loaders")
+        # the device pyramid's caps: the post_knn loader's pinned ones, taken
+        # over the same rooms' host pyramids with the same margin
+        dev_caps = list(caps["post_knn"])
+
+        # -- a: one batch's device pyramid against the host's ----------------
+        cfg_d = phase14_config(data, os.path.join(root, "exp_check"))
+        cfg_d.update(post_knn=False, device_pyramid=True, device_level_caps=dev_caps)
+        b0 = first.to(device)
+        args = post_knn_mod.static_args(cfg_d, b0.points[0].shape[0])
+        with torch.no_grad():
+            full, overflow = post_knn_mod.build_pyramid_packed(b0, *args[1:])
+        assert not bool(overflow), "the device pyramid overflowed its caps"
+        pts0, m0, bid0 = (first.points[0].numpy(), first.masks[0].numpy(),
+                          first.bids[0].numpy())
+        scenes = np.unique(bid0[m0])
+        host = {int(sc): [pts0[m0 & (bid0 == sc)]] for sc in scenes}
+        for lvl, g in enumerate(cfg_d.grid_size[1:], 1):
+            dm = full.masks[lvl].cpu().numpy()
+            dp, db = full.points[lvl].cpu().numpy()[dm], full.bids[lvl].cpu().numpy()[dm]
+            worst = 0.0
+            for sc in scenes:
+                host[int(sc)].append(grid_subsampling(host[int(sc)][-1], sampleDl=float(g)))
+                want, got = host[int(sc)][-1], dp[db == sc]
+                assert got.shape == want.shape, (
+                    f"level {lvl} scene {sc}: {got.shape[0]} voxels on the card, "
+                    f"{want.shape[0]} on the host")
+                # each host barycenter's nearest on the card, one to one (a
+                # sort by coordinates would pair rows apart wherever two
+                # voxels' coordinates tie within rounding)
+                dist, near = cKDTree(got).query(want)
+                assert len(np.unique(near)) == len(near), (
+                    f"level {lvl} scene {sc}: barycenters not one to one")
+                err = float(dist.max())
+                assert err <= PYRAMID_ATOL, f"level {lvl} scene {sc}: barycenters {err:.3e}"
+                worst = max(worst, err)
+            log(f"[pyramid] device pyramid level {lvl} (grid {g}): cap {dm.shape[0]}, "
+                f"{int(dm.sum())} voxels over {len(scenes)} scenes, each scene's count equal to "
+                f"the host grid_subsampling's, barycenters within {worst:.3e}")
+
+        def subsample_levels():
+            pts, m, bid = b0.points[0], b0.masks[0], b0.bids[0]
+            for lvl in range(1, len(cfg_d.grid_size)):
+                sub = grid_subsample_fixed(pts, m, float(cfg_d.grid_size[lvl]),
+                                           int(dev_caps[lvl]), features=b0.norms[0],
+                                           bid=bid, n_scenes=int(cfg_d.BATCH_SIZE))
+                pts, m, bid = sub["points"], sub["mask"], sub["bid"]
+            return pts
+
+        with torch.no_grad():
+            _, sub_ms = graph_ms(subsample_levels)
+            _, prep_ms = graph_ms(lambda: post_knn_mod.build_pyramid_packed(b0, *args[1:]))
+
+        # -- b: every kNN call of that batch --------------------------------
+        knn_ms, own_ms, entries = knn_check(full, int(cfg_d.K_self[0]), rng)
+        log(f"[pyramid] one batch's device pyramid (replays): {prep_ms:.3f} ms, of which grid "
+            f"subsampling {sub_ms:.3f} ms and the 13 kNN calls {knn_ms:.3f} ms "
+            f"({knn_ms / prep_ms:.1%}); {entries:.3e} distance entries; each query restricted "
+            f"to its own scene's rows: {own_ms:.3f} ms")
+        summary.update(prep_ms=prep_ms, sub_ms=sub_ms, knn_ms=knn_ms, own_ms=own_ms,
+                       entries=entries)
+        lap("pyramid and kNN checks")
+        del full, b0, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- c, d: trainer.main under each key -------------------------------
+        rec, prec = EntryRecorder(wrappers), PrepareRecorder()
+        try:
+            for mode in ("post_knn", "device_pyramid"):
+                exp = os.path.join(root, f"exp_{mode}")
+                cfg = phase14_config(data, exp)
+                if mode == "device_pyramid":
+                    cfg.update(post_knn=False, device_pyramid=True, device_level_caps=dev_caps)
+                label = f"trainer.main, {mode}"
+                rec.zero()
+                recs = eager_recorders()
+                n_preps = len(prec.preps)
+                t0 = time.perf_counter()
+                state = trainer.main(cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts, captured = kernels_gate(label, rec)
+                train, val = rec.steps["train"][-1], rec.steps["eval"][-1]
+                held_to_plain("[pyramid]", label, recs, counts, captured,
+                              valid_rows(train.calls + val.calls))
+                del recs
+                gc.collect()
+                assert len(prec.preps) == n_preps + 1, "main made more than one prepare"
+                prep = prec.preps[-1]
+                sigs = {c["batch"].signature() for c in train.calls}
+                assert len(sigs) == 1 and train.graphs.captures == 1, (
+                    f"{label}: {len(sigs)} signatures, {train.graphs.captures} captures")
+                n_prep = len(train.calls) + len(val.calls)
+                assert len(prep.calls) == n_prep, (len(prep.calls), n_prep)
+                assert prep.graphs.captures == 1 and prep.graphs.replays == n_prep - 1, (
+                    f"{label}: prepare captured {prep.graphs.captures} times, replayed "
+                    f"{prep.graphs.replays} for {n_prep} batches")
+                lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
+                losses = [r["train_loss"] for r in lines if "train_loss" in r]
+                assert losses and all(math.isfinite(v) for v in losses), losses
+                assert any("val_miou" in r for r in lines), lines
+                params, stats, epoch = CheckpointManager(os.path.join(exp, "model")).restore_eval()
+                saved = {**params, **stats}
+                for k, v in state.model.state_dict().items():
+                    assert torch.equal(v.cpu(), saved[k]), f"{label}: checkpoint differs at {k}"
+                calls, replays = list(train.calls), prep.graphs.replays
+                steady = calls[ENTRY_STEADY_FROM:]
+                end = rec.epoch_ends[-1]
+                s_it = (end - steady[0]["start"]) / len(steady)
+                batch, raw = calls[-1]["batch"], prep.calls[len(calls) - 1]["batch"]
+                step_s = host_times(lambda: train(state, batch, 0), ENTRY_REPLAY_WARMUP,
+                                    ENTRY_REPLAY_REPS)
+                prep_s = host_times(lambda: prep(raw, device), ENTRY_REPLAY_WARMUP,
+                                    ENTRY_REPLAY_REPS)
+                valid = [int(m.sum()) for m in batch.masks]
+                log(f"[pyramid] {label}: {wall:.1f} s in all, {len(calls)} steps, losses "
+                    f"{losses}, checkpoint of epoch {epoch} equal to main's final state bit for "
+                    f"bit; prepare captured once, replayed {replays} times in main; caps "
+                    f"{[p.shape[0] for p in batch.points]}, valid {valid}; first step "
+                    f"{calls[0]['ms'] / 1e3:.3f} s; {s_it:.4f} s/it over steps "
+                    f"{ENTRY_STEADY_FROM + 1}-{len(calls)} against the train replay median "
+                    f"{statistics.median(step_s):.4f} s and the prepare replay median "
+                    f"{statistics.median(prep_s):.4f} s (each {len(step_s)} after "
+                    f"{ENTRY_REPLAY_WARMUP} warm-up, host clock to a synchronize); s from each "
+                    f"step's start to the next's "
+                    f"{[round(b['start'] - a['start'], 4) for a, b in zip(calls, calls[1:])]}; "
+                    f"train graphs: {graph_pools(train)}")
+                summary[mode] = dict(s_it=s_it, step=statistics.median(step_s),
+                                     prepare=statistics.median(prep_s), counts=counts)
+                if mode == "device_pyramid":
+                    # B's and C's nei-mode calls of one eval forward at these shapes
+                    conv_times(state.model, batch, summary)
+                del state, train, val, batch, raw
+                for steps in rec.steps.values():
+                    steps.clear()
+                prec.preps.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                lap(f"main, {mode}")
+
+            # -- f: eval.simple.evaluate under device_pyramid ------------------
+            exp = os.path.join(root, "exp_device_pyramid")
+            cfg_e = phase14_config(data, exp)
+            cfg_e.update(post_knn=False, device_pyramid=True,
+                         eval_path=os.path.join(root, "eval_simple"))
+            rec.zero()
+            recs = eager_recorders()
+            miou, mean_s = evaluate(cfg_e, pretrain_path=os.path.join(exp, "model"))
+            counts, captured = kernels_gate("evaluate, device_pyramid", rec)
+            ev = rec.steps["eval"][-1]
+            held_to_plain("[pyramid]", "evaluate, device_pyramid", recs, counts, captured,
+                          valid_rows(ev.calls))
+            del recs
+            assert len(ev.calls) == 2 * PYRAMID_VAL_ROOMS, len(ev.calls)
+            for i in range(PYRAMID_VAL_ROOMS):
+                first_c, second = ev.calls[2 * i], ev.calls[2 * i + 1]
+                assert sum(second["launches"].values()) == 0, second["launches"]
+                n_valid = int(second["batch"].masks[0].sum())
+                log(f"[pyramid] evaluate scene {i}: {n_valid} valid points, caps "
+                    f"{[p.shape[0] for p in second['batch'].points]}, first call "
+                    f"{first_c['ms']:.1f} ms, replay {second['ms']:.3f} ms "
+                    f"({n_valid / second['ms'] * 1e3:.1f} valid points/s)")
+            model = ev.calls[0]["model"]
+            model_cpu = build(cfg_e, device="cpu")
+            model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            batch = ev.calls[1]["batch"]
+            with torch.no_grad():
+                want = model_cpu.forward_batch(batch.to("cpu"))
+            m0 = batch.masks[0].cpu()
+            got = ev.calls[1]["logits"].cpu()
+            diff = max_diff(got[m0], want[m0])
+            assert torch.allclose(got[m0], want[m0], **MODEL_TOL), (
+                f"evaluate scene 0: logits on the card {diff:.3e} from the CPU's")
+            log(f"[pyramid] evaluate: mIoU {miou:.4f}, {mean_s * 1e3:.3f} ms per scene "
+                f"(evaluate's own mean); scene 0's logits on the card against the CPU "
+                f"(the same weights and batch): max abs err {diff:.3e} (MODEL_TOL)")
+            summary["evaluate"] = [c["ms"] for c in ev.calls[1::2]]
+            rec.steps["eval"].clear()
+            gc.collect()
+            lap("evaluate")
+
+            # -- g: eval.voting.evaluate_voting under device_pyramid -----------
+            cfg_v = phase14_config(data, exp)
+            cfg_v.update(post_knn=False, device_pyramid=True,
+                         eval_path=os.path.join(root, "eval_voting"))
+            rec.zero()
+            t0 = time.perf_counter()
+            vmiou = evaluate_voting(cfg_v, pretrain_path=os.path.join(exp, "model"),
+                                    vote_num=PYRAMID_VOTES)
+            vwall = time.perf_counter() - t0
+            kernels_gate("evaluate_voting, device_pyramid", rec)
+            vlog = [x for x in open(os.path.join(cfg_v.eval_path, "log.txt"))
+                    if "Voting wall" in x][-1].split("INFO: ")[-1].strip()
+            probs = {f: np.load(os.path.join(cfg_v.eval_path, f))
+                     for f in sorted(os.listdir(cfg_v.eval_path)) if f.endswith("_probs.npy")}
+            assert len(probs) == PYRAMID_VAL_ROOMS, sorted(probs)
+            for f, p in probs.items():
+                # a raw point without a vote would keep a row of zeros
+                assert np.allclose(p.sum(-1), 1.0, atol=1e-4), f"{f}: a point without a vote"
+            lap("voting")
+            cfg_c = cfg_v.copy()
+            cfg_c.eval_path = os.path.join(root, "eval_voting_cpu")
+            evaluate_voting(cfg_c, state=model_cpu, vote_num=PYRAMID_VOTES, max_scenes=1)
+            name = sorted(probs)[0]
+            got, want = probs[name], np.load(os.path.join(cfg_c.eval_path, name))
+            verr = float(np.abs(got - want).max())
+            assert verr <= VOTE_ATOL, f"voting {name}: card against CPU {verr:.3e}"
+            top2 = np.sort(want, -1)[:, -2:]
+            sure = top2[:, 1] - top2[:, 0] > VOTE_ATOL
+            assert (got.argmax(-1)[sure] == want.argmax(-1)[sure]).all(), (
+                f"voting {name}: labels differ off the near-ties")
+            log(f"[pyramid] evaluate_voting ({PYRAMID_VOTES} votes, cut from 8): mIoU "
+                f"{vmiou:.4f}, {vwall:.1f} s from the call; every raw point voted in all "
+                f"{len(probs)} scenes; {name} against the CPU: max abs err {verr:.3e} "
+                f"({int((~sure).sum())} near-ties of {sure.shape[0]} points); {vlog}")
+            summary["voting"] = vlog
+            lap("voting on the CPU")
+        finally:
+            rec.restore()
+            prec.restore()
+    log(f"[pyramid] summary ({smi}): {json.dumps(summary, default=str)}; phase 14 "
+        f"{time.time() - t_phase:.1f} s ({seconds})")
+
+
+def conv_times(model, batch, summary):
+    """Phase 14: B's and C's calls of one eval forward of the trained model
+    on a device-pyramid batch (plain edges), each against its plain version,
+    timed beside its plain version and bound (phase 4's way)."""
+    import pcf_torch.nn.fused as fused_mod
+    from pcf_torch.ops.kernels.pconv_fused import (
+        pconv_pe_conv_linear, pconv_pe_conv_linear_plain, pcf_conv_linear,
+        pcf_conv_linear_plain)
+
+    pairs = {"pcf_conv_linear": (pcf_conv_linear, pcf_conv_linear_plain),
+             "pconv_pe_conv_linear": (pconv_pe_conv_linear, pconv_pe_conv_linear_plain)}
+    recs = [Recorder(fused_mod, k) for k in pairs]
+    model.eval()
+    with torch.no_grad():
+        model.forward_batch(batch)
+    for r in recs:
+        r.restore()
+    out = {}
+    with torch.no_grad():
+        for r in recs:
+            kern, plain = pairs[r.name]
+            rows_of = valid_rows([dict(batch=batch, launches={r.name: len(r.calls)},
+                                       captured={r.name: 0})])
+            err = max(check_call(r.name, kern, plain, a, rows=rows_of(r.name, i, a))
+                      for i, a in enumerate(r.calls))
+            ms = cuda_ms(lambda: [kern(*a) for a in r.calls])
+            plain_ms = cuda_ms(lambda: [plain(*a) for a in r.calls], reps=3)
+            tot = [conv_cost(r.name, a) for a in r.calls]
+            b_ms = sum(b for b, _ in tot) / PEAK_BYTES * 1e3
+            o_ms = sum(o for _, o in tot) / PEAK_OPS[torch.float32] * 1e3
+            out[r.name] = dict(calls=len(r.calls), ms=ms, plain_ms=plain_ms,
+                               bound_ms=max(b_ms, o_ms),
+                               bound_by="bytes" if b_ms >= o_ms else "operations",
+                               max_abs_err=err)
+            log(f"[pyramid] {r.name} float32 nei mode, one eval forward at "
+                f"{batch.points[0].shape[0]} level-0 rows: {len(r.calls)} calls, max abs err "
+                f"{err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{max(b_ms, o_ms):.4f} ms by {out[r.name]['bound_by']}")
+    summary["conv"] = out
+
+
 def main() -> int:
     faulthandler.enable()
     if not torch.cuda.is_available():
@@ -1577,20 +2218,7 @@ def main() -> int:
             table, wr, lt = args
             out = lt.numel() * table.shape[1] * table.element_size()
             return table.numel() * table.element_size() + (wr.numel() + lt.numel()) * 4 + out, 0
-        feats, edges, extra, v, lw, lb = args
-        M, K, W = v.shape
-        C = feats.shape[1]
-        E = 0 if extra is None else extra.shape[-1]
-        Ct = C if kname == "pcf_conv_linear" else C + E
-        idx = (edges.window_rows.numel() + edges.localT.numel()
-               if isinstance(edges, WindowedEdges) else edges.numel())
-        isz = feats.element_size()
-        b = (feats.numel() * isz + idx * 4 + M * K * (E + W) * isz
-             + (lw.numel() + lb.numel()) * 4 + M * lw.shape[1] * 4)
-        ops = 2 * M * K * Ct * W + 2 * M * Ct * W * lw.shape[1]
-        if kname == "pcf_conv_linear":
-            ops += M * K * C
-        return b, ops
+        return conv_cost(kname, args)
 
     def nei_mode(args):
         return (args[0], args[1].nei) + tuple(args[2:])
@@ -2127,6 +2755,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
                      fused_layer_eval=fused_layer_eval), smi)
+
+    # ---- 14 pyramid: the device pyramid and voting ------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    pyramid_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
+                       fused_layer_eval=fused_layer_eval), smi)
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

@@ -133,6 +133,9 @@ def pack_scenes(
     """Pack per-scene pyramids (dicts from data.pyramid.scene_to_item) into
     one padded batch.
 
+    Scenes without edges (post_knn: the host pyramid; device_pyramid: level
+    0 alone) get [rows, 1] zero placeholders and no windows.
+
     window_tile set (e.g. 128) wraps every edge array in a WindowedEdges;
     the scenes must then be Morton-sorted per level (scene_to_item(morton=
     True)), and every scene's segment is aligned to the tile so that no tile
@@ -158,9 +161,6 @@ def pack_scenes(
     points, norms, masks, bids = [], [], [], []
     edges_self, edges_forward, edges_propagate = [], [], []
     has_edges = "nei_self_list" in scenes[0]
-    if not has_edges:
-        raise NotImplementedError(
-            "scenes without edges (post_knn) are not supported by pcf_torch yet")
 
     for lvl in range(n_levels):
         seg = _seg_sizes(lvl)
@@ -182,6 +182,15 @@ def pack_scenes(
         masks.append(mask)
         bids.append(_pad_rows(bid, cap, value=-1))
 
+        if not has_edges:
+            # post_knn / device_pyramid: the edges are computed on the device
+            # after packing (data/post_knn.py); [rows, 1] placeholders until then
+            edges_self.append(np.zeros((cap, 1), np.int32))
+            if lvl < n_levels - 1:
+                edges_forward.append(np.zeros((level_caps[lvl + 1], 1), np.int32))
+                edges_propagate.append(np.zeros((cap, 1), np.int32))
+            continue
+
         es = _cat_aligned(
             [s["nei_self_list"][lvl] + offs[i] for i, s in enumerate(scenes)],
             lvl).astype(np.int32)
@@ -197,7 +206,7 @@ def pack_scenes(
                  for i, s in enumerate(scenes)], lvl).astype(np.int32)
             edges_propagate.append(_pad_rows(ep, cap))
 
-    if window_tile:
+    if window_tile and has_edges:
         ws, wf, wp = window_sizes or (768, 1536, 512)
         if window_size:
             ws = wf = wp = window_size

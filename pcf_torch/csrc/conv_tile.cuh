@@ -179,30 +179,9 @@ __device__ __forceinline__ void stage_L(const LView& lv, const Smem& sm, char* d
 // kb (the x tile's rows kb.., v's registers from 0): NK a compile-time
 // count, so the x loads of later neighbours go out before the products of
 // earlier ones.
-template <int CC, bool RND, int NK>
+template <int CC, int NK>
 __device__ __forceinline__ void contract_k(const float* xr, float (&vr)[kKReg][4],
                                            float (&s)[CC][4]) {
-  if (RND) {  // two products at a time, each rounded to bf16 (mul.bf16x2)
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      const __nv_bfloat162 v01 = __floats2bfloat162_rn(vr[k][0], vr[k][1]);
-      const __nv_bfloat162 v23 = __floats2bfloat162_rn(vr[k][2], vr[k][3]);
-#pragma unroll
-      for (int j4 = 0; j4 < CC / 4; ++j4) {
-        const float4 x4 = reinterpret_cast<const float4*>(xr + k * CC)[j4];
-        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const __nv_bfloat162 xx = __float2bfloat162_rn(xv[jj]);
-          const float2 p01 = __bfloat1622float2(__hmul2(xx, v01));
-          const float2 p23 = __bfloat1622float2(__hmul2(xx, v23));
-          float* acc = s[4 * j4 + jj];
-          acc[0] += p01.x, acc[1] += p01.y, acc[2] += p23.x, acc[3] += p23.y;
-        }
-      }
-    }
-    return;
-  }
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
 #pragma unroll
@@ -214,16 +193,15 @@ __device__ __forceinline__ void contract_k(const float* xr, float (&vr)[kKReg][4
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float& acc = s[4 * j4 + jj][i];
-          acc = RND ? acc + bf16_round(xv[jj] * vr[k][i]) : fmaf(xv[jj], vr[k][i], acc);
+          acc = fmaf(xv[jj], vr[k][i], acc);
         }
     }
   }
 }
 
 // S chunk columns of thread (m, q) for CC channels: s[j][i] = sum_k x * v.
-// RND rounds each product to bf16 before the f32 sum (kernel E's bf16
-// contraction). vload(vr, kb) reloads v for neighbours kb.. when K > kKReg.
-template <int CC, bool RND, typename VLoad>
+// vload(vr, kb) reloads v for neighbours kb.. when K > kKReg.
+template <int CC, typename VLoad>
 __device__ __forceinline__ void contract(const float* xs, int xs_stride, int K,
                                          float (&vr)[kKReg][4], float (&s)[CC][4], int m,
                                          VLoad vload) {
@@ -233,7 +211,7 @@ __device__ __forceinline__ void contract(const float* xs, int xs_stride, int K,
     for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
   const float* xr = xs + m * xs_stride;
   if (K == kKReg) {  // the flagship's 16
-    contract_k<CC, RND, kKReg>(xr, vr, s);
+    contract_k<CC, kKReg>(xr, vr, s);
     return;
   }
   for (int kb = 0; kb < K; kb += kKReg) {
@@ -250,7 +228,7 @@ __device__ __forceinline__ void contract(const float* xs, int xs_stride, int K,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             float& acc = s[4 * j4 + jj][i];
-            acc = RND ? acc + bf16_round(xv[jj] * vr[k][i]) : fmaf(xv[jj], vr[k][i], acc);
+            acc = fmaf(xv[jj], vr[k][i], acc);
           }
       }
     }
@@ -263,7 +241,7 @@ __device__ __forceinline__ void contract(const float* xs, int xs_stride, int K,
 // holds (the CC channels are one 16-byte piece of a feature row: no branch
 // between the loads), else from xload(m, k, c, x). The loads of a batch of
 // 32 / CC neighbours go out before their products.
-template <int CC, bool RND, int NB, bool FAST, typename XFast, typename XLoad>
+template <int CC, int NB, bool FAST, typename XFast, typename XLoad>
 __device__ __forceinline__ void direct_batch(float (&vr)[kKReg][4], float (&s)[CC][4], int m,
                                              int c, int kb, int k0, int K, XFast xfast,
                                              XLoad xload) {
@@ -279,22 +257,12 @@ __device__ __forceinline__ void direct_batch(float (&vr)[kKReg][4], float (&s)[C
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
     if (K != kKReg && kb + k0 + k >= K) continue;
-    if (RND) {  // two products at a time, each rounded to bf16 (mul.bf16x2)
-      const __nv_bfloat162 vv = __float2bfloat162_rn(vr[k0 + k][0]);
 #pragma unroll
-      for (int j = 0; j < CC; j += 2) {
-        const float2 p =
-            __bfloat1622float2(__hmul2(__floats2bfloat162_rn(x[k][j], x[k][j + 1]), vv));
-        s[j][0] += p.x, s[j + 1][0] += p.y;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < CC; ++j) s[j][0] = fmaf(x[k][j], vr[k0 + k][0], s[j][0]);
-    }
+    for (int j = 0; j < CC; ++j) s[j][0] = fmaf(x[k][j], vr[k0 + k][0], s[j][0]);
   }
 }
 
-template <int CC, bool RND, typename XFast, typename XLoad, typename VLoad>
+template <int CC, typename XFast, typename XLoad, typename VLoad>
 __device__ __forceinline__ void contract_direct(int K, float (&vr)[kKReg][4],
                                                 float (&s)[CC][4], int m, int c, bool live,
                                                 bool fast, XFast xfast, XLoad xload,
@@ -308,9 +276,9 @@ __device__ __forceinline__ void contract_direct(int K, float (&vr)[kKReg][4],
 #pragma unroll
     for (int k0 = 0; k0 < kKReg; k0 += kB) {
       if (fast)
-        direct_batch<CC, RND, kB, true>(vr, s, m, c, kb, k0, K, xfast, xload);
+        direct_batch<CC, kB, true>(vr, s, m, c, kb, k0, K, xfast, xload);
       else
-        direct_batch<CC, RND, kB, false>(vr, s, m, c, kb, k0, K, xfast, xload);
+        direct_batch<CC, kB, false>(vr, s, m, c, kb, k0, K, xfast, xload);
     }
   }
 }
@@ -319,7 +287,7 @@ __device__ __forceinline__ void contract_direct(int K, float (&vr)[kKReg][4],
 // wide (padded). gather(xs, c0) writes the x tile of chunk c0; store(r, o, v)
 // takes each output element of the tile (r < mt, o < o_end). The caller
 // has synchronised the block after its last write to the loop's space.
-template <int NT, bool RND, typename Gather, typename XOk, typename XFast, typename XLoad,
+template <int NT, typename Gather, typename XOk, typename XFast, typename XLoad,
           typename VLoad, typename Store>
 __device__ __forceinline__ void chunk_loop_bf16(const LView& lv, const Smem& sm, char* smem,
                                                 int K, int W, int mt, int o0, int o_end,
@@ -361,11 +329,11 @@ __device__ __forceinline__ void chunk_loop_bf16(const LView& lv, const Smem& sm,
     float s[CC][4];
     if (direct) {
       const int c = ci * CH + q * CC;
-      contract_direct<CC, RND>(K, vr, s, m, c, m < mt, xok(c), xfast, xload, vload);
+      contract_direct<CC>(K, vr, s, m, c, m < mt, xok(c), xfast, xload, vload);
 #pragma unroll
       for (int j = 0; j < CC; ++j) S[m * sm.s_stride + q * CC + j] = __float2bfloat16(s[j][0]);
     } else {
-      contract<CC, RND>(xs, sm.xs_stride, K, vr, s, m, vload);
+      contract<CC>(xs, sm.xs_stride, K, vr, s, m, vload);
 #pragma unroll
       for (int j = 0; j < CC; ++j)
 #pragma unroll
@@ -449,11 +417,11 @@ __device__ __forceinline__ void chunk_loop_f32(const LView& lv, const Smem& sm, 
     float s[CC][4];
     if (direct) {
       const int c = ci * CH + q * CC;
-      contract_direct<CC, false>(K, vr, s, m, c, m < mt, xok(c), xfast, xload, vload);
+      contract_direct<CC>(K, vr, s, m, c, m < mt, xok(c), xfast, xload, vload);
 #pragma unroll
       for (int j = 0; j < CC; ++j) S[(q * CC + j) * kPoints + m] = s[j][0];
     } else {
-      contract<CC, false>(xs, sm.xs_stride, K, vr, s, m, vload);
+      contract<CC>(xs, sm.xs_stride, K, vr, s, m, vload);
 #pragma unroll
       for (int j = 0; j < CC; ++j)
 #pragma unroll

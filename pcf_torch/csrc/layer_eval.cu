@@ -52,20 +52,27 @@
 //     (bf16: mma.sync m16n8k16 on a bf16 copy of L; f32: register-blocked);
 //     W = 1 layers (the transposes) in the loop's direct mode;
 //   - ReLU and the cast to the table's type as the tile is stored. Where
-//     the chunk ranges of a tile are split over blocks (small levels), the
-//     blocks add into a zeroed f32 buffer, and the last block of each tile
-//     and O slice to finish (a counter per tile) applies the bias, ReLU and
-//     cast in the same launch;
+//     the chunk ranges of a tile are split over blocks (small levels), each
+//     block stores its partial tile in its own f32 slot of a workspace
+//     [ranges, M, O], and the last block of each tile and O slice to finish
+//     (a counter per tile) adds the slots in range order and applies the
+//     bias, ReLU and cast in the same launch. The sum's order is fixed, so
+//     two launches on the same inputs give the same bits (f32 atomics would
+//     add in the order the blocks finish; in bf16 a rounding flips on those
+//     last bits);
 //   - the strided max-pool shortcut, exact, from the first block of a tile.
 //
-// Rounding follows eval_kernel.py: with f32 features every product and sum
-// is f32. With bf16 features the MLP multiplicands are bf16 (weights rounded
-// once, when packed; activations rounded as they are stored) with f32 sums
-// and f32 biases; feature times guidance score is rounded to bf16; each
-// contraction product is rounded to bf16 before the f32 sum over K (so the
-// contraction stays on the CUDA cores), and the sum to bf16; the projection
-// multiplies bf16 by bf16 into f32 on the tensor cores. Geometry is read in
-// f32 in both modes. The MLPs run on the CUDA cores in both modes.
+// Rounding: with f32 features every product and sum is f32. With bf16
+// features everything between the reads and the projection stays f32, as in
+// kernel B: the geometry, the MLPs (f32 weights and activations), the
+// guidance scores, feature times score, the contraction over K; its sum S is
+// rounded to bf16 and the projection multiplies it by a bf16 copy of L into
+// f32 on the tensor cores; the output is rounded to bf16 as it is stored.
+// (eval_kernel.py rounds the MLPs' multiplicands and activations, feature
+// times score and each contraction product to bf16 as well: four roundings
+// a layer more, which left the bf16 layer up to 2.5 times as far from the
+// f32 model as the standard bf16 layers on trained weights.) The MLPs and
+// the contraction run on the CUDA cores in both modes.
 //
 // C interface for ctypes: layer_eval(args, work, stream) returns
 // cudaGetLastError() after the launch; layer_eval_shape reports the launch
@@ -181,7 +188,7 @@ __host__ __device__ inline int padded_width(int dout) {
 }
 
 // Optional subtrahend of a layer's input: x[i, e] - key[(e / K)*pk + i*ik]
-// (the guidance query minus its key), rounded to bf16 with BF.
+// (the guidance query minus its key).
 struct Key {
   const float* at;  // null: none
   int pk, ik, K;
@@ -190,8 +197,8 @@ struct Key {
 // y = act(x @ w + b) for edge e = threadIdx.x < ne, outputs [j0, j0 + NO) of
 // a layer of dp padded columns: x feature-major in shared memory (x[i*ld +
 // e]), all NO outputs in registers, each weight load a broadcast feeding NO
-// FMAs. Output j at y[e*y_e + j*y_j], j < dout; BF rounds it to bf16.
-template <bool BF, bool KEYED, int NO>
+// FMAs. Output j at y[e*y_e + j*y_j], j < dout.
+template <bool KEYED, int NO>
 __device__ __forceinline__ void dense(const float* x, int ld, const float* w, const float* b,
                                       int din, int dout, int dp, int j0, float* y, int y_e,
                                       int y_j, int ne, bool sigmoid, Key key) {
@@ -207,10 +214,7 @@ __device__ __forceinline__ void dense(const float* x, int ld, const float* w, co
 #pragma unroll 4
   for (int i = 0; i < din; ++i) {
     float xv = x[i * ld + e];
-    if (KEYED) {
-      xv -= kp[i * key.ik];
-      if (BF) xv = bf16_round(xv);
-    }
+    if (KEYED) xv -= kp[i * key.ik];
     const float* wr = w + i * dp + j0;
 #pragma unroll
     for (int j = 0; j < NO; j += 4) {
@@ -225,32 +229,31 @@ __device__ __forceinline__ void dense(const float* x, int ld, const float* w, co
   for (int j = 0; j < NO; ++j) {
     if (j0 + j >= dout) break;
     const float v = sigmoid ? 1.f / (1.f + expf(-acc[j])) : fmaxf(acc[j], 0.f);
-    y[e * y_e + (j0 + j) * y_j] = BF ? bf16_round(v) : v;
+    y[e * y_e + (j0 + j) * y_j] = v;
   }
 }
 
 // One layer over ne edges, in blocks of at most 64 outputs.
-template <bool BF, bool KEYED>
+template <bool KEYED>
 __device__ void layer(const float* x, int ld, const float* w, const float* b, int din, int dout,
                       float* y, int y_e, int y_j, int ne, bool sigmoid, Key key) {
   const int dp = padded_width(dout);
   if (dp <= 4)
-    dense<BF, KEYED, 4>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
+    dense<KEYED, 4>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
   else if (dp == 8)
-    dense<BF, KEYED, 8>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
+    dense<KEYED, 8>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
   else if (dp == 16)
-    dense<BF, KEYED, 16>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
+    dense<KEYED, 16>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
   else if (dp == 32)
-    dense<BF, KEYED, 32>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
+    dense<KEYED, 32>(x, ld, w, b, din, dout, dp, 0, y, y_e, y_j, ne, sigmoid, key);
   else
     for (int j0 = 0; j0 < dout; j0 += 64)
-      dense<BF, KEYED, 64>(x, ld, w, b, din, dout, dp, j0, y, y_e, y_j, ne, sigmoid, key);
+      dense<KEYED, 64>(x, ld, w, b, din, dout, dp, j0, y, y_e, y_j, ne, sigmoid, key);
 }
 
 // A whole MLP over ne edges: hidden layers alternate between h0 and h1
 // (feature-major, ld), the last writes dest at (d_e, d_j); `key` applies to
 // the first layer's input. Ends with the block synchronised.
-template <bool BF>
 __device__ void mlp(const Mlp& mp, const float* params, const float* x, int ld, float* h0,
                     float* h1, float* dest, int d_e, int d_j, int ne, bool sigmoid_last,
                     Key key = Key{nullptr, 0, 0, 1}) {
@@ -258,11 +261,11 @@ __device__ void mlp(const Mlp& mp, const float* params, const float* x, int ld, 
     const bool last = l == mp.n - 1;
     float* y = last ? dest : (l % 2 ? h1 : h0);
     if (l == 0 && key.at)  // the guidance MLP's first layer: q - key
-      layer<BF, true>(x, ld, params + mp.w[l], params + mp.b[l], mp.din[l], mp.dout[l], y,
-                      last ? d_e : 1, last ? d_j : ld, ne, last && sigmoid_last, key);
+      layer<true>(x, ld, params + mp.w[l], params + mp.b[l], mp.din[l], mp.dout[l], y,
+                  last ? d_e : 1, last ? d_j : ld, ne, last && sigmoid_last, key);
     else
-      layer<BF, false>(x, ld, params + mp.w[l], params + mp.b[l], mp.din[l], mp.dout[l], y,
-                       last ? d_e : 1, last ? d_j : ld, ne, last && sigmoid_last, key);
+      layer<false>(x, ld, params + mp.w[l], params + mp.b[l], mp.din[l], mp.dout[l], y,
+                   last ? d_e : 1, last ? d_j : ld, ne, last && sigmoid_last, key);
     __syncthreads();
     x = y;
   }
@@ -275,7 +278,6 @@ template <typename T>
 __device__ void per_edge_stage(const LayerEvalArgs& a, const Plan& p, const float* params,
                                const int* rows, float* keep, float* scratch, int m0, int mt,
                                float (&vr)[kKReg][4]) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   const T* __restrict__ feats = static_cast<const T*>(a.feats);
   const int K = a.K, W = a.W, D = a.use_vi ? 12 : 3, ld = p.ld;
   const bool guided = a.gd.n > 0;
@@ -306,9 +308,8 @@ __device__ void per_edge_stage(const LayerEvalArgs& a, const Plan& p, const floa
 #pragma unroll
       for (int d = 0; d < 12; ++d) {
         if (d >= D) break;
-        const float v = BF ? bf16_round(o[d]) : o[d];  // every reader rounds it
-        vi[d * ld + e] = v;
-        if (a.concat_wni) keep[(e0 + e) * a.Cpe + d] = v;
+        vi[d * ld + e] = o[d];
+        if (a.concat_wni) keep[(e0 + e) * a.Cpe + d] = o[d];
       }
     }
     // the query's guidance columns: 16-byte pieces of the rows, 4 in flight
@@ -335,7 +336,7 @@ __device__ void per_edge_stage(const LayerEvalArgs& a, const Plan& p, const floa
     }
     __syncthreads();
     // WeightNet; v of this chunk's points into registers
-    mlp<BF>(a.wn, params, vi, ld, h0, h1, vb, 1, ld, ne, false);
+    mlp(a.wn, params, vi, ld, h0, h1, vb, 1, ld, ne, false);
     if (m >= p0 && m < p0 + np) {  // W = 1 (the direct mode): every quad holds w = 0
 #pragma unroll
       for (int k = 0; k < kKReg; ++k)
@@ -349,9 +350,9 @@ __device__ void per_edge_stage(const LayerEvalArgs& a, const Plan& p, const floa
     if (a.pe.n) {
       const float* x = a.pe_on_vi || !a.use_vi ? vi : vi + 9 * ld;
       if (guided)
-        mlp<BF>(a.pe, params, x, ld, h0, h1, qb + a.Cg * ld, 1, ld, ne, false);
+        mlp(a.pe, params, x, ld, h0, h1, qb + a.Cg * ld, 1, ld, ne, false);
       else
-        mlp<BF>(a.pe, params, x, ld, h0, h1, keep + e0 * a.Cpe, a.Cpe, 1, ne, false);
+        mlp(a.pe, params, x, ld, h0, h1, keep + e0 * a.Cpe, a.Cpe, 1, ne, false);
     }
     if (!guided) continue;
     // guidance: sigmoid(MLP(q - key)) -> keep, the key q at the point's
@@ -368,19 +369,18 @@ __device__ void per_edge_stage(const LayerEvalArgs& a, const Plan& p, const floa
       __syncthreads();
       key = Key{kbuf, Cq, 1, K};
     }
-    mlp<BF>(a.gd, params, qb, ld, h0, h1, keep + e0 * a.H, a.H, 1, ne, true, key);
+    mlp(a.gd, params, qb, ld, h0, h1, keep + e0 * a.H, a.H, 1, ne, true, key);
   }
   __syncthreads();  // the last v loads are done before the loop takes the space
 }
 
 // x[m, k, c0..c0+CC) of tile edge i (row: its clamped row), zero past Ct:
-// guided, feats[row, c] * score[i, c % H] (rounded to bf16 with bf16
-// features); else feats[row, c] for c < Cx and the kept PE column after.
+// guided, feats[row, c] * score[i, c % H]; else feats[row, c] for c < Cx and
+// the kept PE column after.
 // `fast`: one 16-byte load of the feature row (CC channels of T).
 template <typename T, int CC>
 __device__ __forceinline__ void load_x(const LayerEvalArgs& a, const float* keep, int i,
                                        int row, int c0, bool fast, float (&x)[CC]) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   const T* fr = static_cast<const T*>(a.feats) + (long long)row * a.Cf;
   const int Cx = a.Cx;
   if (fast) {
@@ -395,10 +395,7 @@ __device__ __forceinline__ void load_x(const LayerEvalArgs& a, const float* keep
   if (a.gd.n > 0) {
     const float* sc = keep + (size_t)i * a.H;
 #pragma unroll
-    for (int j = 0; j < CC; ++j) {
-      const float v = x[j] * sc[(c0 + j) % a.H];
-      x[j] = BF ? bf16_round(v) : v;
-    }
+    for (int j = 0; j < CC; ++j) x[j] *= sc[(c0 + j) % a.H];
   } else {
     const float* pe = keep + (size_t)i * a.Cpe;
 #pragma unroll
@@ -506,15 +503,16 @@ layer_eval_kernel(const LayerEvalArgs a, const Plan p, float* work) {
     load_x<T, CC>(a, keep, mm * K + k, rows[mm * K + k], c0, p.vec && c0 + CC <= a.Cx, x);
   };
   auto vload = [](float (&)[kKReg][4], int) {};  // K <= kKReg: v is in registers
+  const size_t slot = (size_t)a.M * a.O;  // one partial tile per chunk range
   auto store = [&](int r, int o, float v) {
     const long long at = (long long)(m0 + r) * a.O + o;
     if (split)
-      atomicAdd(work + at, v);
+      __stcg(work + blockIdx.z * slot + at, v);
     else
       put(out, at, fmaxf(v + a.bias[o], 0.f));
   };
   if constexpr (BF16)
-    chunk_loop_bf16<NB, true>(LView{a.L, a.Ct * a.W, a.W, a.O, (a.O + 7) / 8 * 8, 0}, sm,
+    chunk_loop_bf16<NB>(LView{a.L, a.Ct * a.W, a.W, a.O, (a.O + 7) / 8 * 8, 0}, sm,
                               smem, K, a.W, mt, o0, o_end, c_lo, c_hi, vr, gather, xok,
                               xfast, xload, vload, store);
   else
@@ -525,12 +523,13 @@ layer_eval_kernel(const LayerEvalArgs a, const Plan p, float* work) {
   if (!split) return;
 
   // split chunk ranges: the last block of this tile and O slice to finish
-  // applies the bias, ReLU and cast
+  // adds the ranges' partial tiles in range order and applies the bias,
+  // ReLU and cast
   __threadfence();
   __syncthreads();
   int* last = rows;  // the rows are read no more
   if (tid == 0) {
-    int* counters = reinterpret_cast<int*>(work + (size_t)a.M * a.O);
+    int* counters = reinterpret_cast<int*>(work + gridDim.z * slot);
     last[0] = atomicAdd(counters + blockIdx.x * gridDim.y + blockIdx.y, 1) ==
               (int)gridDim.z - 1;
   }
@@ -541,7 +540,9 @@ layer_eval_kernel(const LayerEvalArgs a, const Plan p, float* work) {
   for (int i = tid; i < mt * w; i += kThreads) {
     const int r = i / w, o = o0 + i - r * w;
     const long long at = (long long)(m0 + r) * a.O + o;
-    put(out, at, fmaxf(__ldcg(work + at) + a.bias[o], 0.f));
+    float v = 0.f;
+    for (int z = 0; z < (int)gridDim.z; ++z) v += __ldcg(work + z * slot + at);
+    put(out, at, fmaxf(v + a.bias[o], 0.f));
   }
 }
 
@@ -602,9 +603,11 @@ int launch_kernel(KernelT kernel, const LayerEvalArgs& a, const Plan& p, float* 
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  if (p.g.csplits > 1) {  // partial sums and tile counters start at zero
-    const size_t bytes = sizeof(float) * ((size_t)a.M * a.O + (size_t)p.g.tiles * p.g.splits);
-    const cudaError_t e = cudaMemsetAsync(work, 0, bytes, stream);
+  if (p.g.csplits > 1) {  // the tile counters start at zero; every block
+                         // writes the whole of its partial tile
+    const size_t slots = (size_t)p.g.csplits * a.M * a.O;
+    const cudaError_t e = cudaMemsetAsync(reinterpret_cast<float*>(work) + slots, 0,
+                                          sizeof(int) * (size_t)p.g.tiles * p.g.splits, stream);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<dim3(p.g.tiles, p.g.splits, p.g.csplits), kThreads, p.smem, stream>>>(a, p, work);
@@ -688,7 +691,7 @@ extern "C" void layer_eval_shape(const LayerEvalArgs* args, long long* shape) {
   shape[6] = kThreads;
   shape[7] = a.bf16 != 0;
   shape[8] = p.pc;
-  shape[9] = p.g.csplits > 1
-                 ? (long long)sizeof(float) * ((long long)a.M * a.O + (long long)p.g.tiles * p.g.splits)
-                 : 0;
+  shape[9] = p.g.csplits > 1 ? (long long)sizeof(float) * ((long long)p.g.csplits * a.M * a.O +
+                                                            (long long)p.g.tiles * p.g.splits)
+                             : 0;
 }

@@ -249,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv_linear_kernel(const Args a) 
     store_out(a, (long long)(m0 + r) * a.O + o, v, o);
   };
   if constexpr (BF16)
-    chunk_loop_bf16<NB, false>(a.lv, sm, smem, a.K, a.W, mt, o0, o_end, c_lo, c_hi, vr,
+    chunk_loop_bf16<NB>(a.lv, sm, smem, a.K, a.W, mt, o0, o_end, c_lo, c_hi, vr,
                                gather, xok, xfast, xload, vload, store);
   else
     chunk_loop_f32<NB>(a.lv, sm, smem, a.K, a.W, mt, o0, o_end, c_lo, c_hi, vr, gather,

@@ -10,7 +10,9 @@ static-shape packed batches of pcf_torch.core.batching:
   * per-scene: z-shift, augmentations (rotation, flips, scale, jitter,
     RandomDropColor, crop, Mix3D scene mixing), finest-grid voxelization,
     MAX_POINTS_NUM ball-crop, index shuffle, pyramid + kNN build
-    (reference flow: scannet_data_loader_color_DDP.py:85-278);
+    (reference flow: scannet_data_loader_color_DDP.py:85-278); under
+    cfg.post_knn the pyramid without edges, under cfg.device_pyramid level 0
+    alone, the rest built on the device after packing (data/post_knn.py);
   * batches of BATCH_SIZE scenes are packed + padded to bucketed capacities;
   * data parallelism shards scene indices per process (rank), replacing
     DistributedSampler (:296-297).
@@ -38,7 +40,7 @@ import numpy as np
 
 from pcf_torch.core.batching import PackedPyramid, compute_level_caps, pack_scenes
 from pcf_torch.data import transforms as T
-from pcf_torch.data.pyramid import scene_to_item
+from pcf_torch.data.pyramid import scene_to_item, subsample
 from pcf_torch.ops.voxelize import voxelize
 from pcf_torch.ops.window import WindowOverflow, max_window_uniques
 
@@ -274,10 +276,19 @@ class ScanNetDataset:
 
     def _build_item(self, coord, norm, color, label):
         cfg = self.cfg
-        if cfg.get("device_pyramid") or cfg.post_knn:
-            raise NotImplementedError(
-                "cfg.post_knn and cfg.device_pyramid (the pyramid and kNN built on "
-                "the device after packing) are not ported to pcf_torch yet")
+        if cfg.get("device_pyramid"):
+            # level 0 alone: the pyramid and the edges are built on the
+            # device after packing (data/post_knn.build_pyramid_packed)
+            return {"point_list": [coord.astype(np.float32)],
+                    "surface_normal_list": [norm.astype(np.float32)],
+                    "feature_list": color.astype(np.float32),
+                    "label_list": label.astype(np.int32)}
+        if cfg.post_knn:
+            # the host pyramid without edges: the kNN runs on the device
+            point_list, norm_list = subsample(coord, norm, grid_size=cfg.grid_size)
+            return {"point_list": point_list, "surface_normal_list": norm_list,
+                    "feature_list": color.astype(np.float32),
+                    "label_list": label.astype(np.int32)}
         return scene_to_item(coord, norm, color, label, cfg.grid_size,
                              cfg.get("K_self", 16), cfg.get("K_forward", 16),
                              cfg.get("K_propagate", 16), rng=self.rng,

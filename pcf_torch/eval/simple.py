@@ -7,7 +7,9 @@ statistics; with cfg.fused_eval every Linear+BN pair folded and each conv
 layer one launch of the whole-layer kernel, as the reference fuses BN at
 test_ScanNet_simple.py:139-142), times it, and writes softmax probs (.npy),
 colored predictions (.ply), benchmark label files (.txt) and the class-IoU
-log. Scenes are packed one at a time, under no level caps.
+log. Scenes are packed one at a time, under no level caps; under
+cfg.post_knn or cfg.device_pyramid each is completed on the device
+(data/post_knn.make_prepare) before the timed call, and not windowed.
 
 Timing: the first call of a batch signature runs eagerly and captures the
 step's CUDA graph (the warm call, like pcf_tpu's compile); the scene's time
@@ -47,6 +49,7 @@ def evaluate(cfg, pretrain_path: str | None = None, split: str = "validation",
     latest checkpoint under `pretrain_path` (CheckpointManager.restore_eval;
     random weights without one). Outputs go to cfg.eval_path."""
     from pcf_torch.core.batching import pack_scenes
+    from pcf_torch.data.post_knn import make_prepare
     from pcf_torch.data.scannet import ScanNetDataset, estimate_window_sizes
     from pcf_torch.entry import build, resolve_device
     from pcf_torch.eval.io import write_labels_txt, write_ply_color
@@ -86,6 +89,10 @@ def evaluate(cfg, pretrain_path: str | None = None, split: str = "validation",
             model.load_state_dict({**params, **stats})
             logger.info(f"restored checkpoint from {pretrain_path} (epoch {ep})")
     eval_step = make_eval_step(cfg)
+    # the pyramid and edges completed on the device (the dataset ships no
+    # host edges): windowing, which tiles host edges, is off
+    prepare = (make_prepare(cfg) if cfg.get("post_knn") or cfg.get("device_pyramid")
+               else None)
 
     sums = np.zeros((3, cfg.num_classes))  # intersection, union, target
     times = []
@@ -99,11 +106,14 @@ def evaluate(cfg, pretrain_path: str | None = None, split: str = "validation",
                                window_sizes=cfg.get("window_sizes"))
 
         try:
-            batch = pack(cfg.get("window_tile", 128) if cfg.get("window_gather") else None)
+            batch = pack(cfg.get("window_tile", 128)
+                         if cfg.get("window_gather") and prepare is None else None)
         except WindowOverflow as e:  # a rare outlier scene: degrade, not die
             logger.warning(f"window overflow on scene {idx} ({e}); "
                            "falling back to plain edges")
             batch = pack(None)
+        if prepare is not None:
+            batch = prepare(batch, device)
 
         eval_step(model, batch)  # warm: this signature's eager run and capture
         _sync(device)
@@ -112,10 +122,10 @@ def evaluate(cfg, pretrain_path: str | None = None, split: str = "validation",
         _sync(device)
         times.append(time.perf_counter() - t0)
 
-        valid = batch.masks[0].numpy()
+        valid = batch.masks[0].cpu().numpy()
         probs = torch.softmax(logits.float(), -1).cpu().numpy()[valid]
         pred = probs.argmax(-1)
-        labels = batch.labels.numpy()[valid]
+        labels = batch.labels.cpu().numpy()[valid]
         hists = intersection_and_union(torch.from_numpy(pred), torch.from_numpy(labels),
                                        cfg.num_classes, cfg.ignore_label)
         for i, h in enumerate(hists):
@@ -125,7 +135,7 @@ def evaluate(cfg, pretrain_path: str | None = None, split: str = "validation",
         if write_outputs:
             np.save(os.path.join(eval_dir, f"{name}_probs.npy"), probs)
             write_ply_color(os.path.join(eval_dir, f"{name}.ply"),
-                            batch.points[0].numpy()[valid], pred)
+                            batch.points[0].cpu().numpy()[valid], pred)
             write_labels_txt(os.path.join(eval_dir, f"{name}.txt"), pred)
         logger.info(f"{idx + 1}/{n} {name}: {times[-1] * 1000:.1f}ms, "
                     f"{int(valid.sum())} pts")

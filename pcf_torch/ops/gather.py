@@ -14,6 +14,17 @@ import torch
 from pcf_torch.ops.window import WindowedEdges, windowed_take
 
 
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a 2-D table and int64 indices in range, through
+    index_select: its backward adds into the table's gradient with
+    index_add_ (pcf_tpu's scatter-add), where advanced indexing's backward
+    sorts the indices and adds each one's duplicates in sequence. A packed
+    batch's padded rows all point at one row, hundreds of thousands of
+    duplicates at the device pyramid's size: 4.5 s of a 5 s train step on
+    the H100 (PERF.md, section 6)."""
+    return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[1])
+
+
 def index_points(points: torch.Tensor, idx) -> torch.Tensor:
     """Gather rows of `points` by integer index.
 
@@ -28,7 +39,7 @@ def index_points(points: torch.Tensor, idx) -> torch.Tensor:
         idx = idx.nei
     idx = idx.long().clamp(0, points.shape[-2] - 1)
     if points.dim() == 2:
-        return points[idx]
+        return take_rows(points, idx)
     batch = torch.arange(points.shape[0], device=points.device)
     return points[batch.view(-1, *([1] * (idx.dim() - 1))), idx]
 

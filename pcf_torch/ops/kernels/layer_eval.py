@@ -27,15 +27,19 @@ folded weights in its own form (packed_weights: the MLP pairs in one padded
 f32 buffer, L in bf16 for a bf16 table), made once and kept on the linear
 weight until one of the folded tensors changes (ops/kernels/derived.py).
 
-Rounding (both versions), after pcf_tpu's kernel: with an f32 feature table
-every product and sum is f32. With a bf16 table the MLP multiplicands are
-bf16 with f32 sums and f32 biases, and every MLP output is rounded to bf16;
-the VI features are f32 until an MLP reads them; the gathered features times
-the guidance scores are rounded to bf16; each contraction product is rounded
-to bf16 before the f32 sum over K, and the sum to bf16; the projection
-multiplies bf16 by bf16 into f32. pcf_tpu's bf16 mode reads the geometry
-through a hi/lo bf16 pair (about 2^-16 relative); both versions here read the
-f32 geometry itself.
+Rounding (both versions): with an f32 feature table every product and sum
+is f32. With a bf16 table everything between the reads and the projection
+is f32, as in kernels B and C: the geometry, the MLPs (f32 weights and
+activations), the guidance scores, the gathered features times the scores,
+the contraction over K. The contraction's sum is rounded to bf16 and the
+projection multiplies it by L rounded to bf16, into f32; the output is
+rounded to bf16. pcf_tpu's kernel rounds four more things in its bf16 mode:
+the MLPs' multiplicands and outputs, features times scores, and each
+contraction product before the sum over K; on trained weights that left
+the bf16 whole-layer forward up to 2.5 times as far from the f32 model as
+the standard bf16 forward. pcf_tpu's bf16 mode also reads the geometry
+through a hi/lo bf16 pair (about 2^-16 relative); both versions here read
+the f32 geometry itself.
 
 `fused_layer_eval` launches kernel E for CUDA tensors, or raises; it takes
 `fused_layer_eval_plain` only for CPU tensors. Neither has a backward:
@@ -72,11 +76,11 @@ def _widths(wn, pe, gd, linear_w, *, Cx, use_vi, concat_wni):
     return W, Cpe, Ct
 
 
-def _mlp_plain(x, pairs, final, mm, acc):
-    """Folded MLP with mm multiplicands and acc sums; ReLU between layers,
-    `final` ("relu" or "sigmoid") after the last."""
+def _mlp_plain(x, pairs, final, acc):
+    """Folded MLP in acc; ReLU between layers, `final` ("relu" or
+    "sigmoid") after the last."""
     for i, (w, b) in enumerate(pairs):
-        x = x.to(mm).to(acc) @ w.to(mm).to(acc) + b.to(acc)
+        x = x.to(acc) @ w.to(acc) + b.to(acc)
         x = torch.sigmoid(x) if i == len(pairs) - 1 and final == "sigmoid" else x.relu()
     return x
 
@@ -100,26 +104,26 @@ def fused_layer_eval_plain(feat_table, geo_table, edges, center_xyz, center_norm
     loc = geo[..., :3] - center_xyz.to(acc)[:, None, :]
     wni = (VI_coordinate_transform(loc, geo[..., 3:6], center_norm.to(acc))
            if use_vi else loc)
-    wgt = _mlp_plain(wni, wn, "relu", mm, acc).to(mm)
+    wgt = _mlp_plain(wni, wn, "relu", acc)
     pe_v = None
     if pe:
         pe_in = wni if pe_on_vi else wni[..., 9:12] if use_vi else wni
-        pe_v = _mlp_plain(pe_in, pe, "relu", mm, acc).to(mm)
+        pe_v = _mlp_plain(pe_in, pe, "relu", acc)
     elif concat_wni:
-        pe_v = wni.to(mm)
+        pe_v = wni
 
-    gath = feats[..., :Cx].to(mm)
+    gath = feats[..., :Cx].to(acc)
     if gd:
-        q = torch.cat([feats[..., Cx:Cx + Cg].to(mm), pe_v], dim=-1)
+        q = torch.cat([feats[..., Cx:Cx + Cg].to(acc), pe_v], dim=-1)
         key = q.amax(dim=1, keepdim=True) if strided else q[:, :1]
-        sc = _mlp_plain(q - key, gd, "sigmoid", mm, acc).to(mm)
+        sc = _mlp_plain(q - key, gd, "sigmoid", acc)
         gath = gath * sc.repeat(1, 1, Cx // num_heads)  # channel c takes head c % H
     if Ct > Cx:
         gath = torch.cat([gath, pe_v], dim=-1)
-    # each product in mm, summed over K in acc, one W column at a time
-    pc = torch.stack([(gath * wgt[..., w:w + 1]).to(acc).sum(dim=1).to(mm)
+    # summed over K in acc, one W column at a time; the sums and L in mm
+    pc = torch.stack([(gath * wgt[..., w:w + 1]).sum(dim=1)
                       for w in range(W)], dim=-1).reshape(M, Ct * W)
-    out = (pc.to(acc) @ linear_w.to(mm).to(acc) + linear_b.to(acc)).relu()
+    out = (pc.to(mm).to(acc) @ linear_w.to(mm).to(acc) + linear_b.to(acc)).relu()
     short = feats[..., Cx + Cg:Cx + Cg + Cs].amax(dim=1) if strided else None
     return out.to(feat_table.dtype), short
 
@@ -159,8 +163,7 @@ def padded_width(dout: int) -> int:
 class Packed(NamedTuple):
     """Kernel E's form of a layer's folded weights: every MLP pair in one f32
     buffer (w [din, dp] row-major, then b [dp], dp = padded_width(dout), the
-    padding zero, each at an offset of a multiple of 4 floats; with
-    bf16 features the weights are rounded to bf16 here, once), the three MLP
+    padding zero, each at an offset of a multiple of 4 floats), the three MLP
     descriptors, the projection's L (the f32 linear weight itself, or its
     bf16 copy with columns zero-padded to a multiple of 8) and bias."""
     params: torch.Tensor
@@ -184,7 +187,7 @@ def _pack(wn, pe, gd, linear_w, linear_b, bf16: bool) -> Packed:
             din, dout = w.shape
             dp = padded_width(dout)
             wp = w.new_zeros((din, dp), dtype=torch.float32)
-            wp[:, :dout] = w.to(torch.bfloat16) if bf16 else w
+            wp[:, :dout] = w
             bp = b.new_zeros(dp, dtype=torch.float32)
             bp[:dout] = b
             d.din[i], d.dout[i] = din, dout

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from pcf_torch.ops.kernels import build
+from pcf_torch.ops.gather import take_rows
 from pcf_torch.ops.kernels.derived import cached
 from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_plain
 from pcf_torch.ops.window import WindowedEdges
@@ -48,7 +49,7 @@ def _gather_plain(feats, edges) -> torch.Tensor:
         M, K = edges.nei.shape
         return window_resolve_plain(feats, edges.window_rows,
                                     edges.localT).reshape(M, K, -1)
-    return feats[edges.long().clamp(0, feats.shape[0] - 1)]
+    return take_rows(feats, edges.long().clamp(0, feats.shape[0] - 1))
 
 
 def _gather_grad(feats, edges) -> torch.Tensor:
@@ -59,7 +60,7 @@ def _gather_grad(feats, edges) -> torch.Tensor:
         M, K = edges.nei.shape
         return window_resolve(feats, edges.window_rows,
                               edges.localT).reshape(M, K, -1)
-    return feats[edges.long().clamp(0, feats.shape[0] - 1)]
+    return take_rows(feats, edges.long().clamp(0, feats.shape[0] - 1))
 
 
 def _common_dtype(*operands):

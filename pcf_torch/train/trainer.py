@@ -6,10 +6,13 @@ accumulation, IoU metrics, checkpoints with resume and best tracking) on
 one device: the train and eval steps of parallel/mesh.py, which on the card
 are captured once per bucket signature as CUDA graphs and replayed. A mesh
 (cfg.data_parallel > 1, multi_host, spatial_train) is not ported yet and
-raises. Metrics stay on the device until a print boundary, as in pcf_tpu:
-reading a number back to the host waits for the card, which would idle it
-while the host prepares the next batch. cfg.profile_dir traces
-cfg.profile_steps steps of epoch cfg.profile_epoch with torch.profiler.
+raises. Under cfg.post_knn or cfg.device_pyramid every batch is completed
+on the device (data/post_knn.make_prepare, one CUDA graph per batch
+signature) before its step. Metrics stay on the device until a print
+boundary, as in pcf_tpu: reading a number back to the host waits for the
+card, which would idle it while the host prepares the next batch.
+cfg.profile_dir traces cfg.profile_steps steps of epoch cfg.profile_epoch
+with torch.profiler.
 
 Usage: python -m pcf_torch.train.trainer --config pcf_tpu/configs/pcf_10cm.yaml
        [--set KEY=VALUE ...] [--device cpu]
@@ -55,13 +58,14 @@ def _group_batches(loader, group: int, map_fn=None, pad_tail: bool = False):
 
 
 def _post_knn_fn(cfg):
-    """The on-device kNN after batching (cfg.post_knn, cfg.device_pyramid),
-    which is not ported yet: raises for either; None without them."""
-    if cfg.get("post_knn") or cfg.get("device_pyramid"):
-        raise NotImplementedError(
-            "cfg.post_knn and cfg.device_pyramid (the pyramid and kNN built on the "
-            "device after packing) are not ported to pcf_torch yet")
-    return None
+    """The pyramid and kNN built on the device after batching (cfg.post_knn,
+    cfg.device_pyramid): data/post_knn.make_prepare's prep(batch, device),
+    captured once per batch signature on the card; None without them."""
+    if not (cfg.get("post_knn") or cfg.get("device_pyramid")):
+        return None
+    from pcf_torch.data import post_knn
+
+    return post_knn.make_prepare(cfg)
 
 
 def _log_step_memory(step_fn, logger):
@@ -99,15 +103,20 @@ def _stop_trace(prof, loss, profile_dir, epoch, steps, logger):
     logger.info(f"profiler trace of {steps} step(s) of epoch {epoch}: {path}")
 
 
-def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed):
+def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed,
+                    prepare=None):
     """One pass of step_fn over loader; returns (state, mean loss, mIoU,
-    mAcc, allAcc). Step `it` of the epoch is seeded with
+    mAcc, allAcc). Under cfg.post_knn or cfg.device_pyramid each batch goes
+    to the model's device and through `prepare` (_post_knn_fn's, made anew
+    when None) before its step. Step `it` of the epoch is seeded with
     step_seed(rng_seed, epoch * 100000 + it), pcf_tpu's fold_in. In epoch
     cfg.profile_epoch (default 0), cfg.profile_dir gets a torch.profiler
     trace of steps 1 to cfg.profile_steps (default 5): the first step, which
     builds and captures, is left out."""
     check_single_device(mesh)
-    _post_knn_fn(cfg)
+    prepare = prepare or _post_knn_fn(cfg)
+    if prepare is not None:
+        device = next(state.model.parameters()).device
     loss_meter = AverageMeter()
     sums = np.zeros((3, cfg.num_classes))  # intersection, union, target
     pending: list = []  # device-side metrics awaiting host readback
@@ -129,6 +138,8 @@ def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed):
             prof = _start_trace()
         if it == 0 and torch.cuda.is_available():
             torch.cuda.reset_peak_memory_stats()
+        if prepare is not None:
+            batch = prepare(batch, device)
         state, metrics = step_fn(state, batch, step_seed(rng_seed, epoch * 100000 + it))
         if it == 0:
             _log_step_memory(step_fn, logger)
@@ -150,12 +161,17 @@ def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed):
     return (state, loss_meter.avg) + _scores(*sums)
 
 
-def validate(eval_step, state, loader, mesh, cfg, logger):
-    """mIoU, mAcc and allAcc of eval_step's predictions over loader."""
+def validate(eval_step, state, loader, mesh, cfg, logger, prepare=None):
+    """mIoU, mAcc and allAcc of eval_step's predictions over loader, each
+    batch through `prepare` as in train_one_epoch."""
     check_single_device(mesh)
-    _post_knn_fn(cfg)
+    prepare = prepare or _post_knn_fn(cfg)
+    if prepare is not None:
+        device = next(getattr(state, "model", state).parameters()).device
     pending = []  # device-side histograms; read back at the end
     for batch in loader:
+        if prepare is not None:
+            batch = prepare(batch, device)
         logits = eval_step(state, batch)
         labels, mask = batch.labels.to(logits.device), batch.masks[0].to(logits.device)
         pending.append(intersection_and_union(logits.argmax(-1), labels,
@@ -178,7 +194,6 @@ def _check_ported(cfg):
         raise NotImplementedError(
             "data parallelism (cfg.data_parallel > 1, multi_host, spatial_train) is "
             "not ported to pcf_torch yet; the trainer runs on one device")
-    _post_knn_fn(cfg)
 
 
 def main(cfg, device=None):
@@ -240,13 +255,15 @@ def main(cfg, device=None):
         class_weights = cfg.get("weights") if cfg.USE_WEIGHT else None
         step_fn = make_train_step(cfg, class_weights=class_weights)
         eval_step = make_eval_step(cfg)
+        prepare = _post_knn_fn(cfg)  # one for the run: its graphs outlive epochs
 
         best_miou = 0.0
         for epoch in range(init_epoch, cfg.total_epoches):
             train_loader.set_epoch(epoch)
             logger.info(f"lr: {float(schedule(state.tx.count)):.6f}")
             state, loss, miou, macc, allacc = train_one_epoch(
-                step_fn, state, train_loader, None, epoch, cfg, logger, cfg.manual_seed)
+                step_fn, state, train_loader, None, epoch, cfg, logger, cfg.manual_seed,
+                prepare=prepare)
             logger.info(f"Train epoch {epoch}: loss {loss:.4f} mIoU/mAcc/allAcc "
                         f"{miou:.4f}/{macc:.4f}/{allacc:.4f}")
             writer.write(epoch, train_loss=loss, train_miou=miou, train_macc=macc,
@@ -256,7 +273,7 @@ def main(cfg, device=None):
             metrics = {}
             if epoch_log % cfg.eval_freq == 0:
                 vmiou, vmacc, vallacc = validate(eval_step, state, val_loader, None, cfg,
-                                                 logger)
+                                                 logger, prepare=prepare)
                 metrics["miou"] = vmiou
                 best_miou = max(best_miou, vmiou)
                 logger.info(f"best val mIoU {best_miou:.4f}")

@@ -258,14 +258,6 @@ def test_getdataLoadersDDP_takes_rank_zero_of_one(scene_dir):
     assert len(list(val)) == 2
 
 
-def test_unported_device_pyramid_raises(scene_dir):
-    for key in ("post_knn", "device_pyramid"):
-        _, tc = _cfgs(scene_dir, **{key: True})
-        ds = t_scannet.ScanNetDataset(tc, "validation", seed=0)
-        with pytest.raises(NotImplementedError, match="post_knn"):
-            ds[0]
-
-
 def test_abandoned_loader_releases_producer_thread(scene_dir):
     """Breaking off an iteration must not leak the producer thread blocked in
     its queue put (the port of tests/test_pipeline.py's test)."""

@@ -33,8 +33,8 @@ def _layer(seed=0):
 def test_packed_weights_layout(bf16):
     """Each MLP layer at its descriptor's offsets: w [din, dp] then b [dp],
     zero-padded to dp columns (a power of two, at least 4), offsets
-    multiples of 4 floats, the weights rounded to bf16 for a bf16 table (the
-    biases stay f32); L the f32 weight, or its bf16 copy padded to 8
+    multiples of 4 floats, weights and biases f32 for either table (the
+    MLPs run in f32); L the f32 weight, or its bf16 copy padded to 8
     columns."""
     wn, pe, gd, lw, lb = _layer()
     pk = packed_weights(wn, pe, gd, lw, lb, bf16)
@@ -46,8 +46,7 @@ def test_packed_weights_layout(bf16):
             dp = {2: 4, 3: 4, 5: 8, 6: 8, 8: 8}[dout]
             assert (d.din[i], d.dout[i]) == (din, dout) and d.w[i] % 4 == 0 == d.b[i] % 4
             got_w = pk.params[d.w[i]:d.w[i] + din * dp].reshape(din, dp)
-            want_w = w.bfloat16().float() if bf16 else w
-            assert torch.equal(got_w[:, :dout], want_w)
+            assert torch.equal(got_w[:, :dout], w)
             assert not got_w[:, dout:].any()
             got_b = pk.params[d.b[i]:d.b[i] + dp]
             assert torch.equal(got_b[:dout], b) and not got_b[dout:].any()
@@ -81,7 +80,7 @@ def test_packed_weights_cache_follows_updates(bf16):
     assert third is not second
     d = third.mlps[2]
     got = third.params[d.w[0]:d.w[0] + 9 * 8].reshape(9, 8)[:, :6]
-    assert torch.equal(got, gd[0][0].bfloat16().float() if bf16 else gd[0][0])
+    assert torch.equal(got, gd[0][0])
     assert packed_weights(wn, pe, gd, lw, lb, bf16) is third
 
 

@@ -833,3 +833,99 @@ def test_evaluate_graph_pools_stay_within_the_budget(cuda, tmp_path, monkeypatch
         # besides the newest pool (the model, the static batches) is less
         # than they held
         assert grown - captured[-1] < sum(captured[:-1]), (grown, captured)
+
+
+# ---- the device pyramid: kNN and grid subsampling on the card ------------------
+
+def _packed_level0(seed, scenes=4, n=3000):
+    """A packed level 0 of `scenes` clustered rooms (ops on the card read
+    nothing else), with padding rows."""
+    from pcf_torch.core.batching import pack_scenes
+    from pcf_torch.data.synthetic import synthetic_scene
+
+    items = []
+    for i in range(scenes):
+        coord, norm, feats, labels = synthetic_scene(n, extent=6.0, seed=seed + i)
+        items.append({"point_list": [coord.astype(np.float32)],
+                      "surface_normal_list": [norm.astype(np.float32)],
+                      "feature_list": feats.astype(np.float32),
+                      "label_list": labels.astype(np.int32)})
+    return pack_scenes(items, bucket_multiple=4096)
+
+
+@pytest.mark.parametrize("k,q_tile", [(16, 512), (8, 256), (16, 64)])
+def test_knn_on_the_card_matches_the_cpu(cuda, k, q_tile):
+    """Self edges of a packed batch: distances within 1e-5 of the scale,
+    neighbour sets equal wherever the k-th and (k+1)-th distances differ."""
+    from pcf_torch.ops.knn import knn
+
+    b = _packed_level0(0)
+    args = (b.points[0], b.points[0], k + 1)
+    kw = dict(query_bid=b.bids[0], ref_bid=b.bids[0], ref_mask=b.masks[0], q_tile=q_tile,
+              return_dist=True)
+    ci, cd = knn(*args, **kw)
+    gi, gd = knn(*(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args),
+                 **{n: v.to(cuda) if isinstance(v, torch.Tensor) else v for n, v in kw.items()})
+    m = b.masks[0].numpy()
+    ci, cd, gi, gd = ci.numpy()[m], cd.numpy()[m], gi.cpu().numpy()[m], gd.cpu().numpy()[m]
+    assert (gi[:, 0] == np.nonzero(m)[0]).all() and (gd[:, 0] == 0).all()
+    np.testing.assert_allclose(gd, cd, atol=1e-5 * cd.max(), rtol=0)
+    distinct = cd[:, k] - cd[:, k - 1] > 1e-6 * cd[:, k]
+    same = (np.sort(gi[:, :k], 1) == np.sort(ci[:, :k], 1)).all(1)
+    assert same[distinct].all()
+
+
+def test_device_pyramid_on_the_card_matches_the_cpu(cuda):
+    """build_pyramid_packed on the card: every level's valid rows, scenes
+    and voxel count as on the CPU, barycenters within 1e-5, no overflow,
+    and the edges as the kNN test holds them."""
+    from scipy.spatial import cKDTree
+
+    from pcf_torch.data.post_knn import build_pyramid_packed
+
+    b = _packed_level0(5)
+    args = ((0.1, 0.2, 0.4, 0.8, 1.6), (16384, 16384, 8192, 4096, 2048), 4, (16,) * 5,
+            (16,) * 5, (16,) * 5)
+    cf, co = build_pyramid_packed(b, *args)
+    gf, go = build_pyramid_packed(b.to(cuda), *args)
+    assert not bool(co) and not bool(go)
+    for lvl in range(1, 5):
+        cm, gm = cf.masks[lvl].numpy(), gf.masks[lvl].cpu().numpy()
+        assert cm.sum() == gm.sum()
+        for sc in range(4):
+            c = cf.points[lvl].numpy()[cm & (cf.bids[lvl].numpy() == sc)]
+            g = gf.points[lvl].cpu().numpy()[gm & (gf.bids[lvl].cpu().numpy() == sc)]
+            assert c.shape == g.shape
+            dist, near = cKDTree(g).query(c)  # each CPU barycenter's nearest on the card
+            assert len(np.unique(near)) == len(near) and dist.max() <= 1e-5
+
+
+def test_prepare_graph_replays_the_eager_preparation(cuda):
+    """make_prepare on the card: the first call captures, the next replays
+    (another batch of the same signature), each as prepare's eager result on
+    the card (the barycenters' f32 atomics add in another order: points
+    within 1e-5, each edge's distance within 1e-5); the overflow check
+    raises on a replay too."""
+    from pcf_torch.config import Config
+    from pcf_torch.data.post_knn import make_prepare, prepare
+
+    cfg = Config(grid_size=[0.1, 0.2, 0.4], K_self=16, K_forward=16, K_propagate=16,
+                 BATCH_SIZE=4, device_pyramid=True, device_level_caps=[16384, 16384, 8192])
+    prep = make_prepare(cfg)
+    for seed in (0, 9):
+        b = _packed_level0(seed)
+        got, want = prep(b, cuda), prepare(b.to(cuda), cfg)
+        for f in ("masks", "bids"):
+            for x, y in zip(getattr(got, f), getattr(want, f)):
+                assert torch.equal(x, y), f
+        for x, y in zip(got.points, want.points):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        for lvl, (x, y) in enumerate(zip(got.edges_self, want.edges_self)):
+            m, pts = got.masks[lvl], got.points[lvl]
+            dx = ((pts[x[m].long()] - pts[m][:, None]) ** 2).sum(-1)
+            dy = ((pts[y[m].long()] - pts[m][:, None]) ** 2).sum(-1)
+            torch.testing.assert_close(dx, dy, atol=1e-5, rtol=0)
+    assert prep.graphs.captures == 1 and prep.graphs.replays == 1
+    cfg.device_level_caps = [16384, 256, 256]
+    with pytest.raises(ValueError, match="overflowed"):
+        prep(_packed_level0(3), cuda)

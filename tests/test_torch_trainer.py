@@ -125,13 +125,52 @@ def test_profile_dir_traces_only_profile_epoch(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("data_parallel", 2), ("multi_host", True),
-                                       ("spatial_train", True), ("post_knn", True),
-                                       ("device_pyramid", True)])
+                                       ("spatial_train", True)])
 def test_unported_modes_raise(scene_dir, tmp_path, key, value):
     cfg = _cfg(t_config, scene_dir, experiment_dir=str(tmp_path / "exp"), **{key: value})
     with pytest.raises(NotImplementedError):
         trainer.main(cfg, device="cpu")
     assert not (tmp_path / "exp").exists()
+
+
+@pytest.mark.parametrize("mode", ["post_knn", "device_pyramid"])
+def test_main_completes_each_batch_on_the_device(scene_dir, tmp_path, monkeypatch, mode):
+    """main for one epoch under post_knn and device_pyramid: every train and
+    validation batch goes through one prepare of the run (its graphs would
+    outlive the epoch), comes out with the full pyramid and kNN edges, and
+    the run trains, validates and checkpoints."""
+    from pcf_torch.data import post_knn
+
+    made, seen = [], []
+    make = post_knn.make_prepare
+
+    def recording_make(cfg):
+        prep = make(cfg)
+
+        def recorded(batch, device):
+            out = prep(batch, device)
+            seen.append((len(batch.points), out))
+            return out
+
+        made.append(recorded)
+        return recorded
+
+    monkeypatch.setattr(post_knn, "make_prepare", recording_make)
+    exp = tmp_path / "exp"
+    # these small scenes shrink less than the derived caps assume
+    caps = {"device_level_caps": [1024, 512, 256]} if mode == "device_pyramid" else {}
+    cfg = _cfg(t_config, scene_dir, experiment_dir=str(exp), **{mode: True}, **caps)
+    state = trainer.main(cfg, device="cpu")
+    assert state.step == 1 and len(made) == 1
+    assert len(seen) == 3  # one train batch, two validation batches
+    for levels_in, out in seen:
+        assert levels_in == (3 if mode == "post_knn" else 1)
+        assert len(out.points) == 3
+        assert [e.shape[1] for e in out.edges_self] == [8, 8, 8]
+        assert all(isinstance(e, torch.Tensor) for e in out.edges_forward)
+    lines = [json.loads(x) for x in (exp / "metrics.jsonl").read_text().splitlines()]
+    assert np.isfinite(lines[0]["train_loss"]) and "val_miou" in lines[1]
+    assert sorted(p.name for p in (exp / "model").iterdir()) == ["1.pt", "metrics.json"]
 
 
 def test_group_batches_matches_pcf_tpu():
@@ -178,12 +217,24 @@ def _miou(pred, labels):
 def test_simple_evaluate_matches_pcf_tpu(scene_dir, tmp_path, monkeypatch):
     """Both evaluations over the same 3 validation scenes (both pyramids on
     numpy/scipy), pcf_tpu's initial weights carried into the port."""
+    _evaluate_against_pcf_tpu(scene_dir, tmp_path, monkeypatch)
+
+
+def test_simple_evaluate_device_pyramid_matches_pcf_tpu(scene_dir, tmp_path, monkeypatch):
+    """The same under device_pyramid: each scene's level 0 packed without
+    windows, its pyramid and kNN (exact) built after packing."""
+    _evaluate_against_pcf_tpu(scene_dir, tmp_path, monkeypatch, device_pyramid=True,
+                              device_level_caps=[1024, 512, 256], knn_method="exact")
+
+
+def _evaluate_against_pcf_tpu(scene_dir, tmp_path, monkeypatch, **kw):
     monkeypatch.setattr(j_pyramid, "_USE_NATIVE", False)
     monkeypatch.setattr(t_pyramid, "_USE_NATIVE", False)
-    jc = _cfg(j_config, scene_dir, eval_path=str(tmp_path / "j"))
-    tc = _cfg(t_config, scene_dir, eval_path=str(tmp_path / "t"))
+    jc = _cfg(j_config, scene_dir, eval_path=str(tmp_path / "j"), **kw)
+    tc = _cfg(t_config, scene_dir, eval_path=str(tmp_path / "t"), **kw)
 
-    item = JDataset(jc.copy(), "validation", seed=jc.manual_seed)[0]
+    # the variables of the windowed model: the parameters are the same
+    item = JDataset(_cfg(j_config, scene_dir), "validation", seed=jc.manual_seed)[0]
     b = j_pack([item], bucket_multiple=256, window_tile=128, window_sizes=jc.window_sizes)
     jmodel = JModel(jc)
     variables = jax.jit(lambda k: jmodel.init(
@@ -218,6 +269,7 @@ def test_simple_evaluate_matches_pcf_tpu(scene_dir, tmp_path, monkeypatch):
                     == (tmp_path / "t" / f"{name}.ply").read_bytes())
         item = JDataset(jc.copy(), "validation", seed=jc.manual_seed)[i]
         labels.append(np.asarray(item["label_list"]).astype(np.int64))
+        assert len(item["point_list"]) == (1 if kw.get("device_pyramid") else 3)
     sure = np.concatenate(preds["sure"])
     assert sure.mean() > 0.5
     if sure.all():
@@ -241,3 +293,20 @@ def test_chip_smoke_phase13_config_is_synth_flagship(tmp_path):
                 test_data_path=f"{data}/val/*.npz", experiment_dir=exp, total_epoches=1,
                 eval_freq=1, save_freq=1, config="pcf_tpu/configs/synth_flagship.yaml")
     assert dict(chip_smoke.phase13_config(data, exp)) == dict(want)
+
+
+def test_chip_smoke_phase14_config_is_post_knn_10cm(tmp_path):
+    """chip_smoke.py builds pcf_tpu/configs/post_knn_10cm.yaml in code: it
+    equals the YAML loaded by the port with the overrides listed in PERF.md
+    section 4."""
+    data, exp = str(tmp_path / "data"), str(tmp_path / "exp")
+    want = t_config.load_config(os.path.join(ROOT, "pcf_tpu", "configs", "post_knn_10cm.yaml"))
+    want.update(USE_PALLAS_KERNEL=True, fused_min_points=0, pin_level_caps=True,
+                level_caps_sample=8, level_caps_margin=1.15,
+                train_data_path=f"{data}/train/*.npz", val_data_path=f"{data}/val/*.npz",
+                test_data_path=f"{data}/val/*.npz", experiment_dir=exp,
+                eval_path=f"{exp}/eval", total_epoches=1, eval_freq=1, save_freq=1,
+                num_classes=8, classes=["wall", "floor", "ceiling", "table", "chair", "sofa",
+                                        "cabinet", "clutter"],
+                config="pcf_tpu/configs/post_knn_10cm.yaml")
+    assert dict(chip_smoke.phase14_config(data, exp)) == dict(want)
