@@ -142,6 +142,30 @@ Phases (any failure exits non-zero, before the last line is printed):
              device_pyramid, PYRAMID_VOTES rotations: every raw point voted,
              scene 0's probabilities against the CPU's within VOTE_ATOL, the
              wall, device+dispatch and host job times, captures per caps key.
+ 15 serve    the serving path (pcf_torch/serve) under phase 13's configuration
+             (synth_flagship, bf16, windowed, B and C on every conv layer) with
+             level caps pinned to 4 synthetic validation rooms of 15,000
+             points (one bucket), the weights of phase 13's checkpoint (seeded,
+             BN calibrated once, when the phase runs alone): `python -m
+             pcf_torch.serve.export --platforms cuda,cpu` as configured and
+             with fused_eval, two processes at once (seconds per program, the
+             artifacts' files and sizes); the serving CLI `python -m
+             pcf_torch.serve.predict` in a fresh process on the 4 rooms (a
+             label file per room, its ms split into host, device, copy back
+             and softmax; no pcf_torch.models, pcf_torch.nn, jax or pcf_tpu
+             loaded); then per artifact in this process: load s, the first
+             predict_packed (eager run and capture) with launch counts from 0
+             over it, split into the eager run and the capture by a dispatch
+             mode that sees the custom operators (A, B and C in the standard
+             program; E once per conv layer, B and C never, in the fused one),
+             every eager operator call against its kernel's plain version
+             (replay_against_plain), predict_packed's replay against
+             make_eval_step's on the same batch and weights (same_as_eager),
+             both replays timed in turns and profiled; the standard program on
+             the CPU and the card's on room 0, each against the f32 standard
+             forward (bf16: the card's RMS error at most FUSED_BF16_WITNESS
+             times the CPU's), and predict_scene per room (host, device, copy
+             back, softmax ms; valid points/s).
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -159,9 +183,11 @@ import dataclasses
 import faulthandler
 import functools
 import gc
+import glob
 import json
 import math
 import re
+import shutil
 import statistics
 import os
 import subprocess
@@ -173,6 +199,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+# phase 3: calls a batch when timing the custom operators' dispatch
+DISPATCH_CALLS = 200
 # f32 operands round to bf16 partials at most once per (c, w) term: within
 # 1e-4 in f32 the two versions differ only in summation order.
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -1264,10 +1292,11 @@ def graph_pools(step) -> str:
             f"replays {step.graphs.replays}, evictions {step.graphs.evictions}")
 
 
-def entry_phase(wrappers, smi, device="cuda"):
+def entry_phase(wrappers, smi, device="cuda", keep_checkpoint=None):
     """Phase 13: trainer.main and eval.simple.evaluate on the card (see the
     module docstring); the entry points take their default device, the
-    checks run on `device`."""
+    checks run on `device`. `keep_checkpoint`: a directory to copy main's
+    checkpoints into (phase 15 serves them)."""
     import pcf_torch.parallel.graphs as graphs_mod
     from pcf_torch.data.pyramid import use_native
     from pcf_torch.data.scannet import getdataLoaders
@@ -1524,6 +1553,8 @@ def entry_phase(wrappers, smi, device="cuda"):
             eval_pool = graph_pool_bytes(ev.graphs)["pool_bytes"]
         finally:
             rec.restore()
+        if keep_checkpoint:
+            shutil.copytree(os.path.join(exp, "model"), keep_checkpoint)
     log(f"[entry] summary ({smi}): loader host s per packed batch "
         + ", ".join(f"NUM_WORKERS {w} {s:.4f}" for w, (s, _) in loader_s.items())
         + f"; main (NUM_WORKERS {cfg.NUM_WORKERS}) s/it from step {ENTRY_STEADY_FROM + 1} on "
@@ -2057,6 +2088,297 @@ def pyramid_phase(wrappers, smi, device="cuda"):
         f"{time.time() - t_phase:.1f} s ({seconds})")
 
 
+# phase 15's rooms: tools/make_synth_dataset.py, 4 validation rooms at its
+# 15,000 points a room, packed one per batch as the serving CLI packs them
+SERVE_ROOMS, SERVE_ROOM_POINTS = 4, 15000
+# phase 15: replays of predict_packed and make_eval_step timed in turns
+SERVE_WARMUP, SERVE_REPS = 2, 10
+# phase 15: the exported replay against the live captured step of the same
+# weights, beyond which a profiled replay of each is broken down by kernel
+SERVE_RATIO_PROFILE = 1.2
+
+
+def op_call(name, args):
+    """(wrapper name, args, kwargs) of a kernel's custom-operator call, put
+    back into its wrapper's form for replay_against_plain."""
+    from pcf_torch.ops.kernels.layer_eval import _pairs
+    from pcf_torch.ops.kernels.pconv_fused import edges_of
+    from pcf_torch.ops.window import WindowedEdges
+
+    if name == "pcf::conv_linear":
+        guided, feats, nei, wr, lt, extra, weights, lw, lb, _ = args
+        return ("pcf_conv_linear" if guided else "pconv_pe_conv_linear",
+                (feats, edges_of(nei, wr, lt), extra, weights, lw, lb), {})
+    if name == "pcf::layer_eval":
+        (table, geo, nei, wr, lt, cxyz, cnorm, mlp, layers, lw, lb, Cx, Cg, Cs, use_vi,
+         pe_on_vi, concat_wni, strided, heads) = args
+        return ("fused_layer_eval",
+                (table, geo, WindowedEdges(nei, wr, lt), cxyz, cnorm, *_pairs(mlp, layers),
+                 lw, lb),
+                dict(Cx=Cx, Cg=Cg, Cs=Cs, use_vi=use_vi, pe_on_vi=pe_on_vi,
+                     concat_wni=concat_wni, strided=strided, num_heads=heads))
+    return name.removeprefix("pcf::"), args, {}
+
+
+def op_recorder():
+    """A TorchDispatchMode that sees every call of a kernel's custom operator
+    (an exported program calls them, not the wrappers): `eager` and
+    `captured` count them by wrapper name outside and inside a graph
+    capture, and `recs()` gives the eager ones' arguments, copied, as
+    EagerRecorder-like objects for replay_against_plain."""
+    from types import SimpleNamespace
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpRecorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls, self.eager, self.captured = {}, {}, {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name
+            if name.startswith("pcf::"):
+                wrapper, a, kw = op_call(name, args)
+                if torch.cuda.is_current_stream_capturing():
+                    self.captured[wrapper] = self.captured.get(wrapper, 0) + 1
+                else:
+                    self.eager[wrapper] = self.eager.get(wrapper, 0) + 1
+                    self.calls.setdefault(wrapper, []).append((snapshot(a), snapshot(kw)))
+            return func(*args, **(kwargs or {}))
+
+        def recs(self):
+            return [SimpleNamespace(name=k, calls=v) for k, v in self.calls.items()]
+
+    return OpRecorder()
+
+
+def serve_phase(wrappers, smi, pretrain=None, device="cuda"):
+    """Phase 15: the serving path on the card (see the module docstring),
+    the programs served on `device`. `pretrain` is a checkpoint directory of
+    phase 15's configuration (phase 13's); without one, seeded weights with
+    BN calibrated once are saved."""
+    from pcf_torch.core.batching import pack_scenes
+    from pcf_torch.data.scannet import ScanNetDataset, estimate_level_caps
+    from pcf_torch.entry import build
+    from pcf_torch.nn.layers import PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE
+    from pcf_torch.parallel.mesh import make_eval_step
+    from pcf_torch.serve import ServingModel
+    from pcf_torch.serve.predict import load_scene
+    from pcf_torch.train.checkpoint import CheckpointManager
+    from pcf_torch.train.state import create_train_state, make_optimizer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    conv_layers = (PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        data = os.path.join(root, "data")
+        subprocess.run([sys.executable, os.path.join(here, "tools", "make_synth_dataset.py"),
+                        "--out", data, "--train", "0", "--val", str(SERVE_ROOMS),
+                        "--points", str(SERVE_ROOM_POINTS)], check=True, capture_output=True)
+        # phase 13's configuration, its level caps pinned to the validation
+        # rooms: the artifact has one bucket
+        cfg = phase13_config(data, os.path.join(root, "exp"))
+        val = ScanNetDataset(cfg, "validation", seed=cfg.manual_seed)
+        caps = estimate_level_caps([val], 1, cfg.bucket_multiple, sample=SERVE_ROOMS,
+                                   margin=cfg.level_caps_margin)
+        cfg.level_caps = caps
+        scenes = sorted(glob.glob(os.path.join(data, "val", "*.npz")))
+        if pretrain is None:
+            # seeded weights, BN calibrated by one train-mode pass over a room
+            pretrain = os.path.join(root, "ckpt")
+            model = build(cfg, device=device)
+            with torch.no_grad():
+                model.train()
+                model.forward_batch(pack_scenes([val[0]], level_caps=caps).to(device))
+                model.eval()
+            CheckpointManager(pretrain).save(0, create_train_state(model, make_optimizer(cfg)[0]))
+            del model
+            source = "seeded weights, BN calibrated once"
+        else:
+            source = f"phase 13's checkpoint ({pretrain})"
+
+        # -- export: both artifacts, one process each, at the same time ---------
+        procs = {}
+        for kind, extra in (("standard", {}), ("fused_eval", {"fused_eval": True})):
+            path = os.path.join(root, f"{kind}.json")
+            with open(path, "w") as f:
+                json.dump({**cfg, **extra}, f)
+            procs[kind] = subprocess.Popen(
+                [sys.executable, "-m", "pcf_torch.serve.export", "--config", path,
+                 "--pretrain_path", pretrain, "--out", os.path.join(root, kind),
+                 "--platforms", ",".join(dict.fromkeys((device, "cpu")))],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        t0 = time.perf_counter()
+        for kind, proc in procs.items():
+            out, _ = proc.communicate()
+            assert proc.returncode == 0, f"export of {kind} failed:\n{out[-4000:]}"
+            for line in out.splitlines():
+                if line.startswith(("exported", "derived", "restored", "params.npz")):
+                    log(f"[serve] export {kind}: {line}")
+        export_wall = time.perf_counter() - t0
+        arts = {kind: os.path.join(root, kind) for kind in procs}
+        for kind, art in arts.items():
+            sizes = {f: os.path.getsize(os.path.join(art, f)) for f in sorted(os.listdir(art))}
+            log(f"[serve] artifact {kind} ({source}): " + ", ".join(
+                f"{f} {n / 2**20:.2f} MiB" for f, n in sizes.items()))
+        log(f"[serve] both exports (standard, fused_eval; cuda and cpu each) in "
+            f"{export_wall:.1f} s wall, in parallel")
+
+        # -- the CLI in a fresh process: labels, and no model code loaded -------
+        preds = os.path.join(root, "predictions")
+        code = ("import json, runpy, sys; sys.argv = ['predict', '--artifact', {a!r}, "
+                "'--scenes', {g!r}, '--out', {o!r}, '--device', {d!r}]; "
+                "runpy.run_module('pcf_torch.serve.predict', run_name='__main__'); "
+                "print(json.dumps(sorted(m for m in sys.modules if m.startswith("
+                "('pcf_torch.models', 'pcf_torch.nn')) or m.split('.')[0] in "
+                "('jax', 'pcf_tpu'))))").format(a=arts["standard"], o=preds, d=device,
+                                                 g=os.path.join(data, "val", "*.npz"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
+                           text=True)
+        assert r.returncode == 0, f"pcf_torch.serve.predict failed:\n{r.stderr[-4000:]}"
+        lines = r.stdout.strip().splitlines()
+        assert json.loads(lines[-1]) == [], f"the serving process loaded {lines[-1]}"
+        for line in lines[:-1]:
+            log(f"[serve] predict CLI: {line}")
+        log(f"[serve] predict CLI process: {time.perf_counter() - t0:.1f} s wall; no "
+            f"pcf_torch.models, pcf_torch.nn, jax or pcf_tpu module loaded")
+        for path in scenes:
+            name = os.path.splitext(os.path.basename(path))[0]
+            labels = np.loadtxt(os.path.join(preds, f"{name}.txt"), dtype=np.int64)
+            n = len(load_scene(path)[0])
+            assert labels.shape == (n,) and labels.min() >= 0 and (
+                labels.max() < cfg.num_classes), f"{name}: labels {labels.shape}"
+
+        # -- in this process: the programs' kernels, against the live step ------
+        model = build(cfg, device=device)
+        params, stats, _ = CheckpointManager(pretrain).restore_eval()
+        model.load_state_dict({**params, **stats})
+        model.eval()
+        n_conv = sum(isinstance(m, conv_layers) for m in model.modules())
+        eval_step = make_eval_step(cfg)
+        coord, norm, feats = load_scene(scenes[0])
+        summary = {}
+        for kind, art in arts.items():
+            t0 = time.perf_counter()
+            served = ServingModel(art, device=device)
+            load_s = time.perf_counter() - t0
+            batch, _ = served.pack_scene(coord, norm, feats)
+            valid = int(batch.masks[0].sum())
+            for fn in wrappers.values():
+                fn.launches = 0
+            rec = op_recorder()
+            t0 = time.perf_counter()
+            with rec:
+                first = served.predict_packed(batch)
+                torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            captured = {k: rec.captured.get(k, 0) for k in wrappers}
+            capture_ms = [e.capture_ms for e in served.graphs.entries.values()]
+            log(f"[serve] {kind}: load {load_s:.2f} s; first predict_packed (eager run and "
+                f"capture) {first_s:.2f} s, capture ms {capture_ms}; launches "
+                f"{launch_split(counts, captured)}")
+            for k, n in counts.items():
+                assert n == rec.eager.get(k, 0) + captured[k], (
+                    f"{kind}: {k} launched {n} times, {rec.eager.get(k, 0)} calls eager and "
+                    f"{captured[k]} in the capture")
+            eager = {k: rec.eager.get(k, 0) for k in wrappers}
+            if kind == "standard":
+                for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear"):
+                    assert eager[k] > 0, f"the exported program did not launch {k}"
+            else:
+                assert eager["fused_layer_eval"] == n_conv, (
+                    f"E launched {eager['fused_layer_eval']} times, {n_conv} conv layers")
+                assert eager["pcf_conv_linear"] == eager["pconv_pe_conv_linear"] == 0, eager
+            res = replay_against_plain(rec.recs())
+            for k, (n, _) in res.items():
+                assert n == eager.get(k, 0), f"{kind}: {n} {k} calls kept, {eager.get(k, 0)}"
+            log(f"[serve] {kind}: every eager kernel call of the program against its plain "
+                "version: " + "; ".join(
+                    f"{KERNEL_LETTERS[k]} {n} calls, " + (
+                        "bit-exact" if k == "window_resolve" else f"max abs err {e:.3e}")
+                    for k, (n, e) in res.items() if n))
+            del rec
+
+            model.cfg.fused_eval = kind == "fused_eval"
+            want = eval_step(model, batch)   # the eager run of its first call
+            again = eval_step(model, batch)  # a replay
+            got = served.predict_packed(batch)
+            same_as_eager(f"serve {kind}: predict_packed replay against make_eval_step", got,
+                          want, again, "bfloat16")
+            del first
+            times = timed_in_turns({"predict_packed": lambda: served.predict_packed(batch),
+                                    "make_eval_step": lambda: eval_step(model, batch)},
+                                   SERVE_WARMUP, SERVE_REPS)
+            ratio = statistics.median(times["predict_packed"]) / statistics.median(
+                times["make_eval_step"])
+            prof = {name: replay_profile(fn) for name, fn in (
+                ("predict_packed", lambda: served.predict_packed(batch)),
+                ("make_eval_step", lambda: eval_step(model, batch)))}
+            log(f"[serve] {kind} replays ({smi}), {SERVE_REPS} after {SERVE_WARMUP} warm-up "
+                f"in turns: {turns_summary(times, valid)}; exported / live {ratio:.3f}; "
+                "profiled replay: " + "; ".join(
+                    f"{n} {p[3]} kernels, device busy {p[1]:.3f} ms of {p[2]:.3f} ms"
+                    for n, p in prof.items()))
+            if ratio > SERVE_RATIO_PROFILE:
+                for n, fn in (("predict_packed", lambda: served.predict_packed(batch)),
+                              ("make_eval_step", lambda: eval_step(model, batch))):
+                    profile_run(fn, f"serve {kind} {n} replay")
+            summary[kind] = dict(load_s=load_s, first_s=first_s, ratio=ratio)
+
+            if kind == "standard":
+                # both programs are bf16 and round at the same places, in
+                # other summation orders: on trained weights they differ by
+                # about bf16's own error (MODEL_TOL is f32's). So each is held
+                # to the f32 standard forward of the same weights, as phase 13
+                # holds the bf16 fused forward: the card's RMS error at most
+                # FUSED_BF16_WITNESS times the CPU program's
+                cpu = ServingModel(art, device="cpu")
+                t0 = time.perf_counter()
+                on_cpu = cpu.predict_packed(batch)
+                cpu_s = time.perf_counter() - t0
+                m0 = batch.masks[0]
+                card, on_cpu = served.predict_packed(batch)[m0].cpu(), on_cpu[m0]
+                cfg32 = cfg.copy()
+                cfg32.compute_dtype = "float32"
+                model32 = build(cfg32, device=device)
+                model32.load_state_dict(model.state_dict())
+                with torch.no_grad():
+                    want32 = model32.eval().forward_batch(batch.to(device))[m0].cpu()
+                scale = want32.abs().max().item()
+                card_err, cpu_err = rms_diff(card, want32), rms_diff(on_cpu, want32)
+                log(f"[serve] standard scene 0 ({cpu_s:.1f} s on the CPU): the card's program "
+                    f"against the CPU program max abs err {max_diff(card, on_cpu):.3e} "
+                    f"(MODEL_TOL allclose "
+                    f"{torch.allclose(card.float(), on_cpu.float(), **MODEL_TOL)}); against "
+                    f"the f32 standard forward (logit scale {scale:.3e}) RMS err: the card "
+                    f"{card_err:.3e}, the CPU {cpu_err:.3e}, ratio {card_err / cpu_err:.3f} "
+                    f"(FUSED_BF16_WITNESS)")
+                assert card_err <= FUSED_BF16_WITNESS * cpu_err, (
+                    f"the card's program is {card_err:.3e} (RMS) from the f32 forward, the "
+                    f"CPU program {cpu_err:.3e}")
+                del cpu, on_cpu, model32
+
+                # predict_scene per scene, after the first call captured the bucket
+                for path in scenes:
+                    c, n_, f_ = load_scene(path)
+                    b, _ = served.pack_scene(c, n_, f_)
+                    served.predict_scene(c, n_, f_)
+                    sp = served.last_split
+                    ms = sum(sp.values())
+                    log(f"[serve] predict_scene {os.path.basename(path)}: {len(c)} points, "
+                        f"{int(b.masks[0].sum())} valid, {ms:.2f} ms ("
+                        + ", ".join(f"{k} {v:.2f}" for k, v in sp.items())
+                        + f" ms), {int(b.masks[0].sum()) / ms * 1e3:.1f} valid points/s")
+            del served
+            gc.collect()
+        model.cfg.fused_eval = False
+    log(f"[serve] summary ({smi}): {json.dumps(summary)}; phase 15 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+
 def conv_times(model, batch, summary):
     """Phase 14: B's and C's calls of one eval forward of the trained model
     on a device-pyramid batch (plain edges), each against its plain version,
@@ -2211,6 +2533,23 @@ def main() -> int:
             f"peak memory {peak / 2**20:.1f} MiB, of which the forward "
             f"{(peak - resident) / 2**20:.1f} MiB")
     del model  # `models` stays for phases 9-11
+    # the kernels run through torch custom operators (pcf_torch/serve exports
+    # them): the host's extra time per call, through the operator against the
+    # launch it wraps, on one small call of kernel A, both timed in turns
+    e = runs["float32"]["calls"]["window_resolve"][0]
+    small = (e[0], e[1][:1].contiguous(), e[2][:1].contiguous())
+    direct = functools.partial(resolve_mod._launch, *small)
+    via_op = functools.partial(resolve_mod.resolve_op, *small)
+    per_call = {k: statistics.median(t) / DISPATCH_CALLS for k, t in timed_in_turns(
+        {k: functools.partial(lambda f: [f() for _ in range(DISPATCH_CALLS)], f)
+         for k, f in (("op", via_op), ("launch", direct))}, 2, 10).items()}
+    extra_us = (per_call["op"] - per_call["launch"]) * 1e3
+    n_calls = {d: sum(r["launches"].values()) for d, r in runs.items()}
+    log(f"[slice] custom-operator dispatch: {per_call['op'] * 1e3:.2f} us a call through the "
+        f"operator, {per_call['launch'] * 1e3:.2f} us for the launch alone: "
+        f"{extra_us:.2f} us more a call; "
+        + ", ".join(f"{d} {n} calls a forward, {n * extra_us / 1e3:.3f} ms of its eager median"
+                    for d, n in n_calls.items()))
 
     # ---- 4 kernels ------------------------------------------------------
     def bytes_ops(kname, args):
@@ -2753,14 +3092,26 @@ def main() -> int:
     # ---- 13 entry: the user's entry points --------------------------------
     gc.collect()
     torch.cuda.empty_cache()
+    kept = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     entry_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
-                     fused_layer_eval=fused_layer_eval), smi)
+                     fused_layer_eval=fused_layer_eval), smi,
+                keep_checkpoint=os.path.join(kept, "model"))
 
     # ---- 14 pyramid: the device pyramid and voting ------------------------
     gc.collect()
     torch.cuda.empty_cache()
     pyramid_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
                        fused_layer_eval=fused_layer_eval), smi)
+
+    # ---- 15 serve: export, the serving CLI, the exported programs -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        serve_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
+                         fused_layer_eval=fused_layer_eval), smi,
+                    pretrain=os.path.join(kept, "model"))
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

@@ -11,3 +11,14 @@ import torch
 # port's f32 numbers are comparable with pcf_tpu's HIGHEST-precision paths.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device`, "cuda" when it is None;
+    a CUDA device raises when CUDA is absent (pass device="cpu" to run on the
+    CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "pcf_torch on the CPU")
+    return device

@@ -9,13 +9,15 @@ Two keys differ in meaning on the port, not in value:
   * `fused_min_points` must be 0 (nn/fused.fused_wins): the TPU crossover
     thresholds were measured on another chip, and the port has none.
 
-`yaml` is imported inside `load_config` only: the machine that runs the
-kernels has no yaml, and nothing else here needs it.
+`yaml` is imported inside `load_config` only, and not for a `.json` file
+(JSON is YAML's subset): the machine that runs the kernels has no yaml, and
+nothing else here needs it.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any
 
 
@@ -135,12 +137,16 @@ def get_default_training_cfgs(cfg: Config) -> Config:
 
 
 def load_config(path: str, overrides=None) -> Config:
-    """Load a YAML config and fill model+training defaults; `overrides` is an
-    optional list of "key=value" strings (values parsed as YAML)."""
-    import yaml
-
+    """Load a YAML (or, ending in .json, JSON) config and fill model+training
+    defaults; `overrides` is an optional list of "key=value" strings (values
+    parsed as YAML)."""
     with open(path, "r") as f:
-        cfg = Config.from_dict(yaml.safe_load(f))
+        if path.endswith(".json"):
+            cfg = Config.from_dict(json.load(f))
+        else:
+            import yaml
+
+            cfg = Config.from_dict(yaml.safe_load(f))
     cfg = get_default_configs(cfg, cfg.get("num_level", 5), cfg.get("base_dim", 64))
     cfg = get_default_training_cfgs(cfg)
     cfg.config = path

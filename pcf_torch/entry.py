@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pcf_torch import resolve_device
 from pcf_torch.config import Config, get_default_configs, get_default_training_cfgs
 from pcf_torch.core import pack_scenes
 from pcf_torch.data import scene_to_item, synthetic_scene
@@ -22,15 +23,6 @@ from pcf_torch.models import PointConvFormer_Segmentation
 from pcf_torch.nn.init import init_params
 from pcf_torch.parallel.mesh import make_eval_step, make_train_step
 from pcf_torch.train.state import create_train_state, make_optimizer
-
-
-def resolve_device(device=None) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                               "pcf_torch on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def flagship_batch(level0_points: int, bucket: int, num_levels: int = 5,

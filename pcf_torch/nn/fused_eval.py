@@ -21,7 +21,9 @@ statistic, load_state_dict) bumps _version, a train step (eager or replayed)
 bumps it through derived.weights_written, and a replaced tensor has another
 address, since the cached storage keeps its old one taken. Each folds
 again. (A change made through `.data` bypasses _version; nothing in
-pcf_torch makes one.)
+pcf_torch makes one.) While torch.export traces a forward (serve/export.py)
+nothing is kept: the folds are computed in the exported program from its
+parameters at every call.
 
 A layer's `linear` may be a LinearBN or a FusedConvLinear (USE_PALLAS_KERNEL);
 both fold. pcf_tpu's fold reads only the LinearBN layout.

@@ -15,6 +15,11 @@ operator. Code that writes weights by such a route calls
 train/state.Optimizer.update do. The eval graphs key on the same
 (data_ptr, _version) of their model's tensors (`stamp`), so they are
 captured again exactly when a cache entry would be made again.
+
+While torch.export traces a forward (serve/export.py), the tensors are fake
+and have neither an address nor a _version: `cached` then computes the value
+from them on every call, so that the derivation is part of the exported
+program and the program depends on its inputs alone.
 """
 
 from __future__ import annotations
@@ -54,7 +59,11 @@ def weights_written(tensors: Iterable[torch.Tensor]) -> None:
 def cached(owner: dict, slot, tensors: Sequence[torch.Tensor], compute: Callable):
     """compute()'s value (run without grad), kept in owner[slot] until the
     stamp of `tensors` changes. The entry holds the tensors' storages, so a
-    replaced tensor cannot hand its address to a new one."""
+    replaced tensor cannot hand its address to a new one. While exporting it
+    keeps nothing: compute() is traced into the program."""
+    if torch.compiler.is_exporting():
+        with torch.no_grad():
+            return compute()
     key = stamp(tensors)
     hit = owner.get(slot)
     if hit is not None and hit[0] == key:

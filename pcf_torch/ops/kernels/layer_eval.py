@@ -43,7 +43,11 @@ the f32 geometry itself.
 
 `fused_layer_eval` launches kernel E for CUDA tensors, or raises; it takes
 `fused_layer_eval_plain` only for CPU tensors. Neither has a backward:
-inference only, as pcf_tpu's.
+inference only, as pcf_tpu's. It runs through a torch custom operator,
+`pcf::layer_eval` (layer_eval_op), whose fake gives the outputs' shapes, so
+that torch.export traces a forward into a program that calls it
+(serve/export.py); the packing of the weights and the kernel's launch
+arguments, which read addresses, are made inside its real implementation.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from pcf_torch.ops.kernels import build
 from pcf_torch.ops.kernels.derived import cached
 from pcf_torch.ops.kernels.window_resolve import window_resolve_plain
 from pcf_torch.ops.vi_transform import VI_coordinate_transform
+from pcf_torch.ops.window import WindowedEdges
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_LAYERS = 4  # MLP layers per branch in the kernel's descriptor
@@ -237,9 +242,6 @@ def _prepare(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
         tensors.append(center_norm)
     if any(t.device != dev for t in tensors):
         raise ValueError("fused_layer_eval: all inputs must be on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("fused_layer_eval has no backward (inference only); "
-                           "call it under torch.no_grad()")
     if feat_table.dtype not in _DTYPES:
         raise ValueError(f"fused_layer_eval: the feature table must be float32 or "
                          f"bfloat16, got {feat_table.dtype}")
@@ -306,6 +308,53 @@ def launch_shape(*args, **kw) -> dict:
                 projection="mma.sync m16n8k16 bf16" if sh[7] else "CUDA cores f32")
 
 
+def _pairs(mlp, layers) -> tuple:
+    """The flat (w, b, w, b, ...) list of layer_eval_op -> (wn, pe, gd) pairs."""
+    out, i = [], 0
+    for n in layers:
+        out.append([(mlp[i + 2 * j], mlp[i + 2 * j + 1]) for j in range(n)])
+        i += 2 * n
+    return tuple(out)
+
+
+@torch.library.custom_op("pcf::layer_eval", mutates_args=())
+def layer_eval_op(feat_table: torch.Tensor, geo_table: torch.Tensor, nei: torch.Tensor,
+                  window_rows: torch.Tensor, localT: torch.Tensor, center_xyz: torch.Tensor,
+                  center_norm: torch.Tensor | None, mlp: list[torch.Tensor],
+                  layers: list[int], linear_w: torch.Tensor, linear_b: torch.Tensor,
+                  Cx: int, Cg: int, Cs: int, use_vi: bool, pe_on_vi: bool, concat_wni: bool,
+                  strided: bool, num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E as an operator: the edges as their three tensors, the folded
+    MLPs as one flat (w, b, ...) list with `layers` pairs each for the
+    WeightNet, PE and guidance. The plain version for CPU tensors, the kernel
+    for CUDA tensors (counted in fused_layer_eval.launches), else raise; the
+    shortcut is [M, 0] when not strided."""
+    args = (feat_table, geo_table, WindowedEdges(nei, window_rows, localT), center_xyz,
+            center_norm, *_pairs(mlp, layers), linear_w, linear_b)
+    kw = dict(Cx=Cx, Cg=Cg, Cs=Cs, use_vi=use_vi, pe_on_vi=pe_on_vi,
+              concat_wni=concat_wni, strided=strided, num_heads=num_heads)
+    if feat_table.device.type == "cpu":
+        out, short = fused_layer_eval_plain(*args, **kw)
+    else:
+        a, out, short, _ = _prepare(*args, **kw)
+        nbytes = _shape(a)[9]
+        work = torch.empty(nbytes, dtype=torch.uint8, device=out.device) if nbytes else None
+        err = _lib().layer_eval(ctypes.byref(a), None if work is None else work.data_ptr(),
+                                torch.cuda.current_stream(feat_table.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_layer_eval launch failed with CUDA error {err}")
+        fused_layer_eval.launches += 1
+    return out, short if strided else feat_table.new_empty((nei.shape[0], 0))
+
+
+@layer_eval_op.register_fake
+def _(feat_table, geo_table, nei, window_rows, localT, center_xyz, center_norm, mlp, layers,
+      linear_w, linear_b, Cx, Cg, Cs, use_vi, pe_on_vi, concat_wni, strided, num_heads):
+    M = nei.shape[0]
+    return (feat_table.new_empty((M, linear_w.shape[-1])),
+            feat_table.new_empty((M, Cs if strided else 0)))
+
+
 def fused_layer_eval(feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
                      linear_w, linear_b, *, Cx: int, Cg: int = 0, Cs: int = 0,
                      use_vi: bool, pe_on_vi: bool = True, concat_wni: bool = False,
@@ -314,22 +363,18 @@ def fused_layer_eval(feat_table, geo_table, edges, center_xyz, center_norm, wn, 
     [N, 3|6] f32, edges a WindowedEdges [M, K], centres [M, 3] f32, folded
     (w [ci, co], b [co]) pairs of the WeightNet, PE and guidance MLPs, the
     folded output linear [Ct*W, O] and [O]. Returns (out [M, O], shortcut
-    [M, Cs] or None) in the table's dtype."""
-    kw = dict(Cx=Cx, Cg=Cg, Cs=Cs, use_vi=use_vi, pe_on_vi=pe_on_vi,
-              concat_wni=concat_wni, strided=strided, num_heads=num_heads)
-    args = (feat_table, geo_table, edges, center_xyz, center_norm, wn, pe, gd,
-            linear_w, linear_b)
-    if feat_table.device.type == "cpu":
-        return fused_layer_eval_plain(*args, **kw)
-    a, out, short, _ = _prepare(*args, **kw)
-    nbytes = _shape(a)[9]
-    work = torch.empty(nbytes, dtype=torch.uint8, device=out.device) if nbytes else None
-    err = _lib().layer_eval(ctypes.byref(a), None if work is None else work.data_ptr(),
-                            torch.cuda.current_stream(feat_table.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"fused_layer_eval launch failed with CUDA error {err}")
-    fused_layer_eval.launches += 1
-    return out, short
+    [M, Cs] or None) in the table's dtype, through layer_eval_op."""
+    mlp = [t for pairs in (wn, pe, gd) for p in pairs for t in p]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (
+            feat_table, geo_table, center_xyz, center_norm, linear_w, linear_b, *mlp)
+            if t is not None):
+        raise RuntimeError("fused_layer_eval has no backward (inference only); "
+                           "call it under torch.no_grad()")
+    out, short = layer_eval_op(
+        feat_table, geo_table, edges.nei, edges.window_rows, edges.localT, center_xyz,
+        center_norm if use_vi else None, mlp, [len(wn), len(pe), len(gd)], linear_w,
+        linear_b, Cx, Cg, Cs, use_vi, pe_on_vi, concat_wni, strided, num_heads)
+    return out, short if strided else None
 
 
 fused_layer_eval.launches = 0

@@ -17,6 +17,11 @@ for CUDA tensors, or raises; there is no fallback. `edges` is either the
 [M, K] int32 index array or a WindowedEdges, whose rows the kernel resolves
 itself. Both are differentiable: the backward is pcf_tpu's, the autograd of
 the same composition recomputed on the saved inputs (_FusedConvLinear).
+Both forwards run through one torch custom operator, `pcf::conv_linear`
+(`guided` picks B or C), whose edges are three tensors (the index array, or
+a WindowedEdges' nei, window_rows and localT) and whose fake gives the
+output's shape, so that torch.export traces a forward into a program that
+calls it (serve/export.py).
 
 Numerics (both versions): the K-reduction in f32; when feats, the
 guidance/PE rows and v are all bf16, the [M, Ct*W] partials and L are rounded
@@ -220,28 +225,62 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b, keep_weight=
     return out
 
 
+def edge_tensors(edges) -> tuple:
+    """(nei, window_rows, localT) of a WindowedEdges; (edges, None, None) of
+    an index array: how edges cross an operator's boundary."""
+    if isinstance(edges, WindowedEdges):
+        return edges.nei, edges.window_rows, edges.localT
+    return edges, None, None
+
+
+def edges_of(nei, window_rows, localT):
+    """The inverse of edge_tensors."""
+    return nei if window_rows is None else WindowedEdges(nei, window_rows, localT)
+
+
+@torch.library.custom_op("pcf::conv_linear", mutates_args=())
+def conv_linear_op(guided: bool, feats: torch.Tensor, nei: torch.Tensor,
+                   window_rows: torch.Tensor | None, localT: torch.Tensor | None,
+                   extra: torch.Tensor, weights: torch.Tensor, linear_w: torch.Tensor,
+                   linear_b: torch.Tensor, keep_weight: bool) -> torch.Tensor:
+    """Kernel B (guided) or C as an operator, on operands of one dtype
+    (_common_dtype): the plain version for CPU tensors, the kernel for CUDA
+    tensors (counted in its wrapper's launches), else raise. `keep_weight`:
+    the bf16 L may be kept between calls (_bf16_weight)."""
+    edges = edges_of(nei, window_rows, localT)
+    if feats.device.type == "cpu":
+        return _compose(_gather_plain, guided, feats, edges, extra, weights,
+                        linear_w, linear_b)
+    wrapper = pcf_conv_linear if guided else pconv_pe_conv_linear
+    out = _launch(wrapper.__name__, feats, edges, extra, weights, linear_w, linear_b,
+                  keep_weight=keep_weight)
+    wrapper.launches += 1
+    return out
+
+
+@conv_linear_op.register_fake
+def _(guided, feats, nei, window_rows, localT, extra, weights, linear_w, linear_b,
+      keep_weight):
+    return feats.new_empty((weights.shape[0], linear_w.shape[-1]), dtype=torch.float32)
+
+
 class _FusedConvLinear(torch.autograd.Function):
-    """Forward: kernel B (guided) or C, or its plain version on the CPU.
-    Backward: pcf_tpu's VJP of the fused kernels (pconv_kernel.py:224-235,
-    :481-491), the autograd of the composition the kernel computes,
-    recomputed on the saved inputs. Its window-mode gather goes through the
-    window resolve, so on the card the backward launches kernels A and D."""
+    """Forward: kernel B (guided) or C, or its plain version on the CPU,
+    through conv_linear_op. Backward: pcf_tpu's VJP of the fused kernels
+    (pconv_kernel.py:224-235, :481-491), the autograd of the composition the
+    kernel computes, recomputed on the saved inputs. Its window-mode gather
+    goes through the window resolve, so on the card the backward launches
+    kernels A and D."""
 
     @staticmethod
     def forward(ctx, guided, training, feats, edges, extra, weights, linear_w, linear_b):
         ctx.guided, ctx.edges = guided, edges
         ctx.save_for_backward(feats, extra, weights, linear_w, linear_b)
-        if feats.device.type == "cpu":
-            return _compose(_gather_plain, guided, feats, edges, extra, weights,
-                            linear_w, linear_b)
         if extra is None:
             extra = weights.new_empty(weights.shape[:2] + (0,))
         feats, extra, weights = _common_dtype(feats, extra, weights)
-        wrapper = pcf_conv_linear if guided else pconv_pe_conv_linear
-        out = _launch(wrapper.__name__, feats, edges, extra, weights, linear_w, linear_b,
-                      keep_weight=not training)
-        wrapper.launches += 1
-        return out
+        return conv_linear_op(guided, feats, *edge_tensors(edges), extra, weights,
+                              linear_w, linear_b, not training)
 
     @staticmethod
     def backward(ctx, g):

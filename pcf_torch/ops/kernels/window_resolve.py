@@ -22,6 +22,13 @@ flat [M, K*C] array, so it launches kernel A and returns a view, counting
 its launches apart from A's. Like pcf_tpu's, it has no gradient: its output
 is detached, as the stop_gradient at pcf_tpu's call site makes it.
 
+Both launches are torch custom operators, `pcf::window_resolve` and
+`pcf::window_resolve_flat`, with fakes that give their outputs' shapes, so
+that torch.export traces a forward through them into a program that calls
+them (serve/export.py). An operator dispatches on its tensors' device as the
+wrappers do; the host's launch plan, which reads the table's address, is
+made inside the operator's real implementation, never in its fake.
+
 `launch_plan` is the kernel's launch plan, computed on the host from shapes
 alone (route, lanes per edge, edges per block, grid and shared memory), so
 that it can be read and tested without a card.
@@ -149,19 +156,33 @@ def _launch(table, window_rows, localT):
     return out
 
 
+@torch.library.custom_op("pcf::window_resolve", mutates_args=())
+def resolve_op(table: torch.Tensor, window_rows: torch.Tensor,
+               localT: torch.Tensor) -> torch.Tensor:
+    """Kernel A as an operator: its plain version for CPU tensors, the kernel
+    for CUDA tensors (counted in window_resolve.launches), else raise."""
+    if table.device.type == "cpu":
+        return window_resolve_plain(table, window_rows, localT)
+    out = _launch(table, window_rows, localT)
+    window_resolve.launches += 1
+    return out
+
+
+@resolve_op.register_fake
+def _(table, window_rows, localT):
+    return table.new_empty((window_rows.shape[0], localT.shape[-1], table.shape[1]))
+
+
 class WindowResolve(torch.autograd.Function):
-    """Forward: kernel A (its plain version on the CPU). Backward: kernel D
-    (its plain version on the CPU), when the table needs a gradient."""
+    """Forward: kernel A (its plain version on the CPU), through its
+    operator. Backward: kernel D (its plain version on the CPU), when the
+    table needs a gradient."""
 
     @staticmethod
     def forward(ctx, table, window_rows, localT):
         ctx.save_for_backward(window_rows, localT)
         ctx.table_rows, ctx.table_dtype = table.shape[0], table.dtype
-        if table.device.type == "cpu":
-            return window_resolve_plain(table, window_rows, localT)
-        out = _launch(table, window_rows, localT)
-        window_resolve.launches += 1
-        return out
+        return resolve_op(table, window_rows, localT)
 
     @staticmethod
     def backward(ctx, g):
@@ -188,11 +209,12 @@ def windowed_take_flat_plain(table: torch.Tensor, window_rows: torch.Tensor,
     return out.reshape(-1, K * table.shape[1])
 
 
-def window_resolve_flat(table: torch.Tensor, window_rows: torch.Tensor,
-                        localT: torch.Tensor, K: int) -> torch.Tensor:
-    """[N, C] table, [T, Wsz] window rows, [T, 1, Mt*K] slots -> [M, K*C],
-    k-major flat, with no gradient."""
-    table = table.detach()
+@torch.library.custom_op("pcf::window_resolve_flat", mutates_args=())
+def resolve_flat_op(table: torch.Tensor, window_rows: torch.Tensor, localT: torch.Tensor,
+                    K: int) -> torch.Tensor:
+    """The flat resolve as an operator: its plain version for CPU tensors,
+    kernel A for CUDA tensors (counted in window_resolve_flat.launches), else
+    raise."""
     if table.device.type == "cpu":
         return windowed_take_flat_plain(table, window_rows, localT, K)
     if localT.shape[-1] % K:
@@ -201,6 +223,19 @@ def window_resolve_flat(table: torch.Tensor, window_rows: torch.Tensor,
     out = _launch(table, window_rows, localT)
     window_resolve_flat.launches += 1
     return out.reshape(-1, K * table.shape[1])
+
+
+@resolve_flat_op.register_fake
+def _(table, window_rows, localT, K):
+    return table.new_empty((window_rows.shape[0] * localT.shape[-1] // K,
+                            K * table.shape[1]))
+
+
+def window_resolve_flat(table: torch.Tensor, window_rows: torch.Tensor,
+                        localT: torch.Tensor, K: int) -> torch.Tensor:
+    """[N, C] table, [T, Wsz] window rows, [T, 1, Mt*K] slots -> [M, K*C],
+    k-major flat, with no gradient."""
+    return resolve_flat_op(table.detach(), window_rows, localT, K)
 
 
 window_resolve_flat.launches = 0

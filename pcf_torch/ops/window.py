@@ -85,6 +85,20 @@ class WindowedEdges:
                              self.localT.to(device))
 
 
+def edges_as_args(edges):
+    """An edge set in the exported calling convention (serve/export.py): a
+    WindowedEdges as the tuple (nei, window_rows, localT), an index array as
+    itself."""
+    if isinstance(edges, WindowedEdges):
+        return edges.nei, edges.window_rows, edges.localT
+    return edges
+
+
+def edges_from_args(arg):
+    """The inverse of edges_as_args."""
+    return WindowedEdges(*arg) if isinstance(arg, (tuple, list)) else arg
+
+
 def max_window_uniques(nei: np.ndarray, tile: int = 128) -> int:
     """Max unique-neighbour count over tiles of `tile` rows (rows are
     zero-padded to a tile multiple like packing)."""

@@ -7,7 +7,9 @@ their mesh forms), the evaluation at pcf_tpu/eval/simple.py:61, and one
 exported program per bucket in pcf_tpu/serve/export.py:67. StepGraphs stands
 for the compile cache inside jax.jit. A step function keeps one, keyed on the
 batch's signature (core/batching.PackedPyramid.signature) and on whatever
-host state changes the program.
+host state changes the program; serve/export.ServingModel keeps one for its
+exported programs, keyed on the bucket, stamped with its parameters'
+addresses.
 
 The first call of a key:
   1. allocates static input buffers, a copy of the batch on the card;

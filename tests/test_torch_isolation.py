@@ -1,9 +1,9 @@
 """pcf_torch stands alone: no module of it (the native library's bindings,
-the ScanNet pipeline, the device pyramid, the trainer and both evaluations
-among them), and nothing chip_smoke.py imports, loads jax, flax, optax or
-pcf_tpu (nor, at import, yaml); entry points default to the card and
-refuse to run without one; chip_smoke.py fails without the card or without
-the repository."""
+the ScanNet pipeline, the device pyramid, the trainer, both evaluations and
+the serving path among them), and nothing chip_smoke.py imports, loads jax,
+flax, optax or pcf_tpu (nor, at import, yaml); entry points default to the
+card and refuse to run without one; chip_smoke.py fails without the card or
+without the repository."""
 
 import os
 import shutil
@@ -24,7 +24,8 @@ for m in pkgutil.walk_packages(pcf_torch.__path__, "pcf_torch."):
 import chip_smoke  # its module-level imports; main() needs the card
 missing = [m for m in ("pcf_torch.native", "pcf_torch.data.scannet", "pcf_torch.data.prepare",
                        "pcf_torch.train.trainer", "pcf_torch.eval.simple", "pcf_torch.utils.cache",
-                       "pcf_torch.ops.knn", "pcf_torch.data.post_knn", "pcf_torch.eval.voting")
+                       "pcf_torch.ops.knn", "pcf_torch.data.post_knn", "pcf_torch.eval.voting",
+                       "pcf_torch.serve.export", "pcf_torch.serve.predict")
            if m not in sys.modules]
 assert not missing, missing
 bad = sorted(n for n in sys.modules
@@ -67,6 +68,34 @@ def test_entry_points_default_to_the_card():
     state, step = build_training(cfg, device="cpu")
     assert next(state.model.parameters()).device.type == "cpu" and state.step == 0
     assert callable(step)
+
+
+@pytest.mark.parametrize("entry", ["ServingModel", "export CLI", "predict CLI"])
+def test_serving_defaults_to_the_card(entry, tmp_path, monkeypatch):
+    """Without a card the serving entry points raise unless asked for the
+    CPU; asked for it, they get past the device (to the missing artifact)."""
+    from pcf_torch.serve import export, predict
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    art, cfg = str(tmp_path / "artifact"), str(tmp_path / "missing.json")
+    if entry == "ServingModel":
+        card, cpu = (lambda: export.ServingModel(art)), (lambda: export.ServingModel(art, "cpu"))
+    else:
+        main = export.main if entry == "export CLI" else predict.main
+        argv = (["export", "--config", cfg, "--out", art] if entry == "export CLI"
+                else ["predict", "--artifact", art, "--scenes", str(tmp_path / "*.npz")])
+        opt = ["--platforms", "cpu"] if entry == "export CLI" else ["--device", "cpu"]
+
+        def run(args):
+            monkeypatch.setattr(sys, "argv", args)
+            main()
+
+        card, cpu = (lambda: run(argv)), (lambda: run(argv + opt))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        card()
+    with pytest.raises(FileNotFoundError):
+        cpu()
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -929,3 +929,80 @@ def test_prepare_graph_replays_the_eager_preparation(cuda):
     cfg.device_level_caps = [16384, 256, 256]
     with pytest.raises(ValueError, match="overflowed"):
         prep(_packed_level0(3), cuda)
+
+
+# ---- the kernels as custom operators, and the serving path (serve/) -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_against_their_plain_versions(cuda, dtype):
+    """Each operator an exported program calls, on CUDA tensors: one launch
+    of its kernel, held to the plain version on the same inputs."""
+    from pcf_torch.ops.kernels.layer_eval import layer_eval_op
+    from pcf_torch.ops.kernels.pconv_fused import conv_linear_op
+    from pcf_torch.ops.kernels.window_resolve import resolve_flat_op, resolve_op
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    e = _edges(cuda)
+    table = torch.randn(N, 32, device=cuda, generator=g).to(dtype)
+    n = window_resolve.launches
+    assert torch.equal(resolve_op(table, e.window_rows, e.localT),
+                       window_resolve_plain(table, e.window_rows, e.localT))
+    geo = torch.randn(N, 6, device=cuda, generator=g)
+    n_flat = window_resolve_flat.launches
+    assert torch.equal(resolve_flat_op(geo, e.window_rows, e.localT, K),
+                       windowed_take_flat_plain(geo, e.window_rows, e.localT, K))
+    assert (window_resolve.launches, window_resolve_flat.launches) == (n + 1, n_flat + 1)
+
+    C, W, O, H, P = 64, 16, 96, 8, 16
+    feats = torch.randn(N, C, device=cuda, generator=g).to(dtype)
+    weights = torch.randn(M, K, W, device=cuda, generator=g).to(dtype)
+    lb = torch.randn(O, device=cuda, generator=g)
+    guid = torch.rand(M, K, H, device=cuda, generator=g).to(dtype)
+    lw = torch.randn(C * W, O, device=cuda, generator=g) / (C * W) ** 0.5
+    n = pcf_conv_linear.launches
+    _check(conv_linear_op(True, feats, e.nei, e.window_rows, e.localT, guid, weights, lw, lb,
+                          True), pcf_conv_linear_plain(feats, e, guid, weights, lw, lb), dtype)
+    add = torch.randn(M, K, P, device=cuda, generator=g).to(dtype)
+    lw = torch.randn((C + P) * W, O, device=cuda, generator=g) / ((C + P) * W) ** 0.5
+    m = pconv_pe_conv_linear.launches
+    _check(conv_linear_op(False, feats, e.nei, None, None, add, weights, lw, lb, True),
+           pconv_pe_conv_linear_plain(feats, e.nei, add, weights, lw, lb), dtype)
+    assert (pcf_conv_linear.launches, pconv_pe_conv_linear.launches) == (n + 1, m + 1)
+
+    args, kw = _layer_call(cuda, "pcf", "small", True, dtype)
+    ft, geo, edges, cx, cn, wn, pe, gd, lw, lb = args
+    mlp = [t for pairs in (wn, pe, gd) for p in pairs for t in p]
+    n = fused_layer_eval.launches
+    out, short = layer_eval_op(ft, geo, edges.nei, edges.window_rows, edges.localT, cx, cn, mlp,
+                               [len(wn), len(pe), len(gd)], lw, lb, kw["Cx"], kw["Cg"],
+                               kw["Cs"], True, True, False, True, kw["num_heads"])
+    want, want_short = fused_layer_eval_plain(*args, **kw)
+    assert fused_layer_eval.launches == n + 1
+    _check(out.float(), want.float(), dtype)
+    assert torch.equal(short, want_short)
+
+
+@pytest.mark.parametrize("path", ["standard", "fused_eval"])
+def test_serving_roundtrip_on_the_card(cuda, tmp_path, path):
+    """export_artifact for the card, then ServingModel on it: the first call
+    runs eagerly and captures, the second replays; both against the live
+    captured eval step on the same weights (same_as_eager's rule)."""
+    from chip_smoke import same_as_eager
+    from pcf_torch.entry import build_eval
+    from pcf_torch.serve import ServingModel, export_artifact
+
+    cfg, batch = _entry(cuda)
+    cfg.update(compute_dtype="bfloat16", fused_eval=path == "fused_eval")
+    model, step = build_eval(cfg, device=cuda, seed=1)
+    with torch.no_grad():
+        model.train()
+        model.forward_batch(batch)
+        model.eval()
+    meta = export_artifact(cfg, model, str(tmp_path), [batch], platforms=["cuda"])
+    assert meta["buckets"][0]["files"] == {"cuda": "bucket_0.cuda.pt2"}
+    served = ServingModel(str(tmp_path))
+    first, replay = served.predict_packed(batch), served.predict_packed(batch)
+    assert served.graphs.captures == 1 and served.graphs.replays == 1
+    want, again = step(model, batch), step(model, batch)
+    same_as_eager(f"{path} first call", first, want, again, "bfloat16")
+    same_as_eager(f"{path} replay", replay, want, again, "bfloat16")
