@@ -17,7 +17,10 @@ Phases (any failure exits non-zero, before the last line is printed):
   4 kernels  every kernel call that forward made, replayed on the same
              inputs against the kernel's plain PyTorch version: window_resolve
              bit-exact; the fused kernels in both index modes within
-             tolerance; times from CUDA events beside the plain version's,
+             tolerance, and each of their calls launched twice on the same
+             inputs, equal bit for bit (B and C are deterministic: split
+             channel ranges meet in a workspace in range order), at every
+             flagship width in both dtypes; times from CUDA events beside the plain version's,
              the bound and, for the resolve, torch.index_select's; kernel
              A's launch plan per call shape (table type and width, edges,
              window; route, unit, lanes per edge, grid, shared memory) with
@@ -38,10 +41,14 @@ Phases (any failure exits non-zero, before the last line is printed):
              against its plain version, and timed beside its bound;
   7 scatter  every window_scatter (kernel D) call of that step, replayed
              against its plain version: f32 within 1e-5 of the output's
-             scale, bf16 within one bf16 step; times as in phase 4, beside
-             index_add_'s, D's time split into the inverse of the
-             edge -> row map (its first pass) and the reduction, and how
-             many edges overflowed their row's bucket;
+             scale, bf16 within one bf16 step; each call launched twice,
+             equal bit for bit (D sorts the edges by row, stably, and sums
+             in a fixed order); times as in phase 4, beside index_add_'s,
+             D's time as the step runs its calls (one inverse of the
+             edge -> row map per edge set: shared_inverses) and each call
+             alone, the inverses' (key, radix sort, row offsets) share of
+             the latter, and how many edges lie in heavy rows (summed piece
+             by piece);
   8 grads    one f32 train step at the entry size on the card, the same
              weights and batch on the CPU in f32 and in float64: the loss and
              every BN running statistic after the step, card against CPU;
@@ -75,8 +82,10 @@ Phases (any failure exits non-zero, before the last line is printed):
              per bucket signature as a CUDA graph and replayed
              (parallel/graphs.py). Eval (make_eval_step) on phase 3's models:
              the standard and fused_eval forwards in f32 and bf16 and the
-             flat_geom forward in f32; each replay's logits against the eager
-             forward's on the same batch (same_as_eager), then a second batch
+             flat_geom forward in f32: no call of B, C or E in the eager
+             forward differs between two launches, and each replay's logits
+             equal the eager forward's on the same batch bit for bit
+             (same_as_eager, exact), then a second batch
              of other scenes packed to the same signature, which must replay
              the same graph; one profiled replay must show each hand-written
              kernel by its CUDA symbol as many times as phases 3, 9 and 11
@@ -166,6 +175,31 @@ Phases (any failure exits non-zero, before the last line is printed):
              forward (bf16: the card's RMS error at most FUSED_BF16_WITNESS
              times the CPU's), and predict_scene per room (host, device, copy
              back, softmax ms; valid points/s).
+ 16 mesh     data-parallel training (parallel/mesh.py) on a mesh of one NCCL
+             rank (a TCPStore on 127.0.0.1): on phase 3's batch, f32 and
+             bf16, SyncBN on (cfg.bn_axis_name), make_eager_train_step and
+             make_train_step over make_mesh() against mesh=None (its seed
+             folded with rank 0): loss, metrics, every gradient, parameter
+             and BN statistic equal bit for bit, for the eager body (launch
+             counts from 0 over it: A, B, C, D), the captured first call and
+             the replay; the eval steps' logits too; the all_reduce calls
+             and bytes per step; replay ms with and without the mesh, in
+             turns. Then trainer.main under multi_host in a torchrun-style
+             group of one rank (RANK, WORLD_SIZE, MASTER_ADDR/PORT in the
+             environment) on MESH_ROOMS synthetic rooms: it joins the group,
+             launches A to D, logs as rank 0, and its checkpoint equals its
+             state bit for bit;
+ 17 variants each off-default key (VARIANT_KEYS: transformer_type,
+             attention_type, cm_geom, remat_layers, remat_deconv) flipped on
+             PCF_Normal at the entry size (2 x 4000 points, windowed, K=16):
+             launch counts from 0 over one f32 eval forward (A and C, and B
+             where a PCFLayer runs), its logits against the CPU at MODEL_TOL;
+             a captured SGD train step against its eager body (smooth
+             kinks), the replay launching nothing eagerly; for the two remat
+             keys the gradients against those without the key and each
+             step's peak memory. PointConvFormer_Classification at the same
+             width over the batch's two scenes as clouds: logits on the card
+             against the CPU, two Adam train steps with finite losses.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -222,8 +256,8 @@ CLOCK_HZ = 2.0e9
 FWD_WARMUP, FWD_REPS = 2, 15
 # train steps timed per dtype, after warm-up
 STEP_WARMUP, STEP_REPS = 2, 10
-# window_scatter against its plain version: f32 atomics sum in another order
-# (1e-5 of the output's scale); in bf16 the f32 sums may round to
+# window_scatter against its plain version: its f32 sums run in another
+# order (1e-5 of the output's scale); in bf16 the f32 sums may round to
 # neighbouring bf16 values, one step being 2^-8 to 2^-7 of the value
 SCATTER_F32_REL = 1e-5
 SCATTER_BF16_RTOL = 2 ** -7
@@ -243,14 +277,14 @@ TRAIN_WITNESS = 2.0
 # one affine transform, the tolerance tests/test_fused_eval.py holds between
 # pcf_tpu's two paths of the whole model
 FOLD_TOL = dict(atol=1e-2, rtol=1e-2)
-# phase 12: a replay's logits against the eager forward's, of the logits'
-# scale. B and C add the partial outputs of split channel ranges with f32
-# atomics, in another order each run, so two eager forwards differ too; the
-# replay runs the same kernels on the same inputs (E adds its ranges in a
-# fixed order: its replays equal its eager forwards). f32: two eager forwards
-# differ by up to 4e-7 of the scale on the H100. bf16: a bf16 rounding flips
-# on those last bits, and two eager forwards differ by up to 7e-3 of the
-# scale, about one bf16 step of the largest logit (2^-7); held to four steps.
+# a replay's logits against the eager forward's, of the logits' scale, where
+# the two are not held bit for bit (phases 13 and 15, the entry points' own
+# graphs; phase 12 holds its replays to eager exactly, B, C, D and E summing
+# in a fixed order). f32: rounding of sums in another order moves a logit by
+# under 4e-7 of the scale on the H100; bf16: such a difference may flip a
+# bf16 rounding, one step of the largest logit (2^-7), held to four steps.
+# Also the floor that a planted fault must move the logits past (phase 12's
+# witnesses).
 GRAPH_REL = {"float32": 1e-5, "bfloat16": 4 * 2 ** -7}
 # phase 12: captured SGD train steps against eager ones, every ReLU and max
 # smooth (phase 8's smooth_kinks: otherwise rounding alone moves a
@@ -660,21 +694,21 @@ def graph_scatters(root, windowed_edges_cls) -> int:
 # the hand-written kernels as a profiler names them (each source keeps its
 # kernels in an anonymous namespace), demangled or not
 _SYMBOL = re.compile(r"(?:\(anonymous namespace\)::|_GLOBAL__N_1\d+)(resolve_wide|"
-                     r"resolve_narrow|conv_linear_kernel|reduce_kernel|layer_eval_kernel)")
+                     r"resolve_narrow|conv_linear_kernel|rows_kernel|layer_eval_kernel)")
 
 
 def symbol_wrapper(name: str):
     """The wrapper whose kernel a profiler's kernel name is, or None: kernel
     A's two routes (window_resolve and window_resolve_flat both launch
     them), B and C (conv_linear_kernel's last template argument: PE), D's
-    reduction (one launch per call), E."""
+    row pass (rows_kernel, one launch per call), E."""
     m = _SYMBOL.search(name)
     if m is None:
         return None
     sym = m.group(1)
     if sym.startswith("resolve_"):
         return "window_resolve"
-    if sym == "reduce_kernel":
+    if sym == "rows_kernel":
         return "window_scatter"
     if sym == "layer_eval_kernel":
         return "fused_layer_eval"
@@ -724,23 +758,37 @@ def rms_diff(a, b) -> float:
     return (a.float() - b.float()).pow(2).mean().sqrt().item()
 
 
-def same_as_eager(label, got, want, again, dtype_name):
-    """A replay's logits against the eager forward's on the same batch,
+def same_as_eager(label, got, want, again, dtype_name, exact=False):
+    """A replay's logits against the eager forward's on the same batch:
+    equal bit for bit with `exact` (and the two eager forwards too), else
     within GRAPH_REL of the scale for the model's compute dtype; `again`, a
-    second eager forward, gives the eager forward's own spread for the log."""
+    second eager forward, gives the eager forward's own spread."""
     scale = want.float().abs().max().item()
-    d = max_diff(got, want)
+    d, spread = max_diff(got, want), max_diff(again, want)
     log(f"[graphs] {label}: replay against eager max abs err {d:.3e}; eager against eager "
-        f"{max_diff(again, want):.3e} (logit scale {scale:.3e})")
+        f"{spread:.3e} (logit scale {scale:.3e})")
+    if exact:
+        assert torch.equal(again, want), f"{label}: two eager forwards differ by {spread:.3e}"
+        assert torch.equal(got, want), (
+            f"{label}: the replay differs from the eager forward by {d:.3e}")
     assert d <= GRAPH_REL[dtype_name] * scale, (
         f"{label}: the replay differs from the eager forward by {d:.3e}")
 
 
-def unstable_calls(model, batch) -> str:
+def shared_calls(fn, calls):
+    """window_scatter's calls as the train step's backward makes them,
+    inside shared_inverses (one inverse per edge set)."""
+    from pcf_torch.ops.kernels.window_scatter import shared_inverses
+
+    with shared_inverses():
+        return [fn(*a) for a in calls]
+
+
+def unstable_calls(model, batch) -> tuple[str, int]:
     """Which calls of kernels B, C and E in one eager forward of `model` give
     outputs that differ bit for bit between two launches on the same
-    inputs, with their channel ranges (blocks that add into one output with
-    f32 atomics)."""
+    inputs, by their channel ranges (blocks whose partial outputs meet in a
+    workspace), and how many in all."""
     import pcf_torch.nn.fused as fused_mod
     import pcf_torch.nn.fused_eval as fused_eval_mod
     from pcf_torch.ops.kernels.layer_eval import launch_shape as layer_eval_shape
@@ -754,7 +802,7 @@ def unstable_calls(model, batch) -> str:
         model.forward_batch(batch)
         for r in recs:
             r.restore()
-        parts = []
+        parts, total = [], 0
         for r in recs:
             splits = {}
             for a, kw in r.calls:
@@ -773,7 +821,8 @@ def unstable_calls(model, batch) -> str:
                 parts.append(f"{r.name} " + ", ".join(
                     f"{bad} of {n} calls with {c} channel range(s)"
                     for c, (n, bad) in sorted(splits.items())))
-    return "; ".join(parts)
+                total += sum(bad for _, bad in splits.values())
+    return "; ".join(parts), total
 
 
 def adamw_state(tx) -> dict:
@@ -820,8 +869,9 @@ def graphs_phase(cfg, batch, batch2, models, eager_launches, valid):
         model.cfg.update(fused_eval=path == "fused_eval", flat_geom=path == "flat_geom")
         graphs = step.graphs
         if path != "flat_geom":
-            log(f"[graphs] {label}: launches not bit-stable run to run: "
-                f"{unstable_calls(model, batch)}")
+            text, unstable = unstable_calls(model, batch)
+            log(f"[graphs] {label}: launches not bit-stable run to run: {text}")
+            assert unstable == 0, f"{label}: {unstable} kernel calls not bit-stable"
         want, again = eager_eval(model, batch), eager_eval(model, batch)
         captures = graphs.captures
         torch.cuda.synchronize()
@@ -829,10 +879,11 @@ def graphs_phase(cfg, batch, batch2, models, eager_launches, valid):
         step(model, batch)  # the eager run and the capture
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t) * 1e3
-        same_as_eager(f"{label} first batch", step(model, batch), want, again, dtype_name)
+        same_as_eager(f"{label} first batch", step(model, batch), want, again, dtype_name,
+                      exact=True)
         assert graphs.captures == captures + 1, f"{label}: {graphs.captures - captures} captures"
         same_as_eager(f"{label} second batch", step(model, batch2), eager_eval(model, batch2),
-                      eager_eval(model, batch2), dtype_name)
+                      eager_eval(model, batch2), dtype_name, exact=True)
         assert graphs.captures == captures + 1, f"{label}: the second batch was captured anew"
         counts, busy, wall, n_kernels = replay_profile(lambda: step(model, batch))
         expected = graph_expected(eager_launches[(path, dtype_name)])
@@ -859,7 +910,7 @@ def graphs_phase(cfg, batch, batch2, models, eager_launches, valid):
             captures = graphs.captures
             step(model, batch)
             same_as_eager(f"{label} after a train-mode forward", step(model, batch), want,
-                          again, dtype_name)
+                          again, dtype_name, exact=True)
             assert graphs.captures == captures + 1, f"{label}: not captured again"
             witness = max_diff(before, want)
             log(f"[graphs] {label}: the statistics before that forward would be off by "
@@ -965,7 +1016,7 @@ def graphs_phase(cfg, batch, batch2, models, eager_launches, valid):
         want, again = eager_eval(fresh, batch), eager_eval(fresh, batch)
         for k in ("recaptured", "replayed"):
             same_as_eager(f"{path} {dtype_name} after 2 train replays, {k}",
-                          step(model, batch), want, again, dtype_name)
+                          step(model, batch), want, again, dtype_name, exact=True)
         fresh.load_state_dict(stale)
         witness = max_diff(eager_eval(fresh, batch), want)
         log(f"[graphs] {path} {dtype_name}: the weights before the replays would be off by "
@@ -2379,6 +2430,335 @@ def serve_phase(wrappers, smi, pretrain=None, device="cuda"):
 
 
 
+# phase 16: trainer.main under multi_host in a group of one rank, on rooms of
+# tools/make_synth_dataset.py (train, val)
+MESH_ROOMS = (8, 2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+class CollectiveCounter:
+    """Counts torch.distributed.all_reduce calls and their bytes while on
+    (the port's mesh and SyncBN call it through the module attribute)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.fn = dist, dist.all_reduce
+        self.calls = self.bytes = 0
+
+        def counted(t, *a, **kw):
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+            return self.fn(t, *a, **kw)
+
+        dist.all_reduce = counted
+
+    def restore(self):
+        self.dist.all_reduce = self.fn
+
+
+def state_bits_equal(label, a, ma, b, mb):
+    """Two train states and their metrics equal bit for bit: the metrics,
+    every parameter and its .grad, every BN running statistic."""
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), f"{label}: metric {k} differs"
+    for (k, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), f"{label}: parameter {k} differs"
+        assert (p.grad is None) == (q.grad is None), f"{label}: gradient {k}"
+        assert p.grad is None or torch.equal(p.grad, q.grad), f"{label}: gradient {k} differs"
+    for (k, u), v in zip(a.model.named_buffers(), b.model.buffers()):
+        assert torch.equal(u, v), f"{label}: buffer {k} differs"
+
+
+def mesh_phase(cfg, batch, wrappers, smi):
+    """Phase 16: data-parallel training on a mesh of one NCCL rank (see the
+    module docstring)."""
+    import torch.distributed as dist
+
+    from pcf_torch.entry import build_training
+    from pcf_torch.parallel import mesh as mesh_mod
+    from pcf_torch.train import trainer
+    from pcf_torch.train.checkpoint import CheckpointManager
+
+    def launched():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = mesh_mod.make_mesh()
+        assert (mesh.size, mesh.rank, mesh.device) == (1, 0, torch.device("cuda", 0)), mesh
+        valid = int(batch.masks[0].sum())
+        for dtype_name in ("float32", "bfloat16"):
+            cfg_m = cfg.copy()
+            cfg_m.update(compute_dtype=dtype_name, bn_axis_name=mesh_mod.AXIS, sync_bn=True)
+            label = f"[mesh] {dtype_name}"
+            seed = 5
+            # the eager bodies: counts from 0 over the mesh step
+            (sa, _), (sb, _) = (build_training(cfg_m.copy(), device="cuda", seed=0),
+                                build_training(cfg_m.copy(), device="cuda", seed=0))
+            with_mesh = mesh_mod.make_eager_train_step(cfg_m, mesh)
+            without = mesh_mod.make_eager_train_step(cfg_m)
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            coll = CollectiveCounter()
+            try:
+                _, ma = with_mesh(sa, batch, seed)
+                torch.cuda.synchronize()
+            finally:
+                coll.restore()
+            counts = launched()
+            for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear",
+                      "window_scatter"):
+                assert counts[k] > 0, f"{label}: {k} was not launched by the mesh step"
+            _, mb = without(sb, batch, mesh_mod.step_seed(seed, 0))
+            state_bits_equal(f"{label} eager", sa, ma, sb, mb)
+            log(f"{label}: eager train step on a 1-rank NCCL mesh (SyncBN on) against "
+                f"mesh=None (seed folded with rank 0): loss, metrics, every gradient, "
+                f"parameter and BN statistic equal bit for bit; launches {counts}; "
+                f"{coll.calls} all_reduce calls a step, {coll.bytes / 2**20:.2f} MiB")
+            ev = (mesh_mod.make_eager_eval_step(cfg_m, mesh)(sa, batch),
+                  mesh_mod.make_eager_eval_step(cfg_m)(sb, batch))
+            assert torch.equal(*ev), f"{label}: eager eval logits differ"
+            del sa, sb, with_mesh, without, ev
+
+            # the captured steps: the first call eager and captured, the
+            # second a replay; both held bit for bit
+            (sa, _), (sb, _) = (build_training(cfg_m.copy(), device="cuda", seed=0),
+                                build_training(cfg_m.copy(), device="cuda", seed=0))
+            cap_mesh, cap = mesh_mod.make_train_step(cfg_m, mesh), mesh_mod.make_train_step(cfg_m)
+            for i in range(2):
+                _, ma = cap_mesh(sa, batch, seed + i)
+                _, mb = cap(sb, batch, mesh_mod.step_seed(seed + i, 0))
+                state_bits_equal(f"{label} {'replay' if i else 'first call'}", sa, ma, sb, mb)
+            assert cap_mesh.graphs.captures == 1 and cap_mesh.graphs.replays == 1, (
+                cap_mesh.graphs.captures, cap_mesh.graphs.replays)
+            evs = (mesh_mod.make_eval_step(cfg_m, mesh), mesh_mod.make_eval_step(cfg_m))
+            for i in range(2):
+                a, b = evs[0](sa, batch), evs[1](sb, batch)
+                assert torch.equal(a, b), f"{label}: eval {'replay' if i else 'call'} differs"
+            seeds = iter(range(100, 10 ** 6))
+            times = timed_in_turns({"mesh": lambda: cap_mesh(sa, batch, next(seeds)),
+                                    "mesh=None": lambda: cap(sb, batch, next(seeds))},
+                                   STEP_WARMUP, STEP_REPS)
+            log(f"{label}: captured train step and eval step, first call and replay, equal "
+                f"to mesh=None bit for bit; replay ms, {STEP_REPS} after {STEP_WARMUP} "
+                f"warm-up in turns: {turns_summary(times, valid)}")
+            del sa, sb, cap_mesh, cap, evs, a, b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # trainer.main under multi_host: it joins a torchrun-style group of one
+    # rank from the environment (the bootstrap), logs and checkpoints on rank 0
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+            data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+            subprocess.run([sys.executable, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "tools", "make_synth_dataset.py"),
+                "--out", data, "--train", str(MESH_ROOMS[0]), "--val", str(MESH_ROOMS[1]),
+                "--points", str(ENTRY_ROOM_POINTS)], check=True, capture_output=True)
+            cfg_h = phase13_config(data, exp)
+            cfg_h.multi_host = True
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            state = trainer.main(cfg_h)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launched()
+            assert dist.is_initialized() and dist.get_world_size() == 1
+            for k in ("window_resolve", "pcf_conv_linear", "pconv_pe_conv_linear",
+                      "window_scatter"):
+                assert counts[k] > 0, f"[mesh] main: {k} was not launched"
+            logtext = open(os.path.join(exp, "log.txt")).read()
+            assert "rank 0 of 1" in logtext, "main did not join the group"
+            lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
+            losses = [r["train_loss"] for r in lines if "train_loss" in r]
+            assert losses and all(math.isfinite(v) for v in losses), lines
+            params, stats, epoch = CheckpointManager(os.path.join(exp, "model")).restore_eval()
+            ckpt = {**params, **stats}
+            for k, v in state.model.state_dict().items():
+                assert torch.equal(v.cpu(), ckpt[k]), f"[mesh] main: checkpoint differs at {k}"
+            log(f"[mesh] trainer.main, multi_host in a 1-rank torchrun-style group (NCCL): "
+                f"{state.step} steps in {wall:.1f} s, launches {counts}, train losses "
+                f"{losses}, checkpoint of epoch {epoch} equal to main's state bit for bit")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# phase 17: each off-default key of the model, flipped on the flagship's
+# PCF_Normal at the entry size (2 x 4000 points, windowed, K=16)
+VARIANT_KEYS = (("transformer_type", "PointTransformer"), ("attention_type", "QK"),
+                ("cm_geom", True), ("remat_layers", True), ("remat_deconv", True))
+
+
+def variants_phase(wrappers, smi, device="cuda"):
+    """Phase 17: the off-default variants on the card (see the module
+    docstring)."""
+    from pcf_torch.entry import build, build_training, flagship_batch
+    from pcf_torch.models import PointConvFormer_Classification
+    from pcf_torch.nn.init import init_params
+    from pcf_torch.nn.layers import set_generator
+    from pcf_torch.parallel.mesh import make_eager_train_step, step_seed
+
+    cfg0, batch = flagship_batch(level0_points=4000, bucket=1024, window_gather=True,
+                                 device=device)
+    cfg0.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas")
+    m = batch.masks[0].cpu()
+    cpu_batch = batch.to("cpu")
+    for key, value in VARIANT_KEYS:
+        label = f"[variants] {key}={value}"
+        cfg_k = cfg0.copy()
+        cfg_k[key] = value
+        model = build(cfg_k, device=device, seed=1)
+        with torch.no_grad():
+            model.train()
+            model.forward_batch(batch)
+            model.eval()
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            got = model.forward_batch(batch)
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            cpu_model = build(cfg_k, device="cpu", seed=1)
+            cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            want = cpu_model.forward_batch(cpu_batch)
+        got = got.cpu()
+        err = (got[m] - want[m]).abs().max().item()
+        expect = ("window_resolve", "pconv_pe_conv_linear") + (
+            () if key == "transformer_type" else ("pcf_conv_linear",))
+        for k in expect:
+            assert counts[k] > 0, f"{label}: {k} was not launched by the forward"
+        assert torch.allclose(got[m], want[m], **MODEL_TOL), f"{label}: logits differ: {err:.3e}"
+        del model, cpu_model
+
+        # a captured train step against its eager body (SGD, every ReLU and
+        # max smooth, as phase 12)
+        cfg_t = cfg_k.copy()
+        cfg_t.update(compute_dtype="float32", optimizer="SGD")
+        (sa, captured), (sb, _) = (build_training(cfg_t.copy(), device=device, seed=0),
+                                   build_training(cfg_t.copy(), device=device, seed=0))
+        eager = make_eager_train_step(cfg_t)
+        losses = ([], [])
+        with smooth_kinks():
+            for i in range(2):
+                if i == 1:
+                    for fn in wrappers.values():
+                        fn.launches = 0
+                _, ma = captured(sa, batch, step_seed(0, i))
+                if i == 1:
+                    torch.cuda.synchronize()
+                    replayed = {k: fn.launches for k, fn in wrappers.items()}
+                    for fn in wrappers.values():
+                        fn.launches = 0
+                _, mb = eager(sb, batch, step_seed(0, i))
+                losses[0].append(ma["loss"].item())
+                losses[1].append(mb["loss"].item())
+        step_counts = {k: fn.launches for k, fn in wrappers.items()}
+        assert captured.graphs.captures == 1 and captured.graphs.replays == 1
+        assert not any(replayed.values()), f"{label}: the replay launched {replayed} eagerly"
+        for k in expect + ("window_scatter",):
+            assert step_counts[k] > 0, f"{label}: {k} was not launched by the train step"
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        over, worst, worst_key = grad_ratios(
+            {k: p.detach() for k, p in sa.model.named_parameters()},
+            {k: p.detach() for k, p in sb.model.named_parameters()})
+        assert all(math.isfinite(v) for v in losses[0] + losses[1]), losses
+        assert rel <= GRAPH_LOSS_RTOL, f"{label}: captured loss differs by {rel:.3e}"
+        assert over == 0, f"{label}: parameter {worst_key} differs after the captured steps"
+        line = (f"{label}: f32 forward on the card against the CPU max abs err {err:.3e} "
+                f"(launches {counts}); captured SGD steps against the eager body: losses "
+                f"{[round(v, 6) for v in losses[0]]} (max rel {rel:.2e}), parameters worst "
+                f"{worst:.3f} of phase 8's tolerance; the eager step launched {step_counts}")
+        del sa, sb, captured, eager
+
+        if key.startswith("remat"):
+            # the gradients with and without the key, and each step's peak
+            grads, peaks = {}, {}
+            for on in (True, False):
+                cfg_r = cfg_t.copy()
+                cfg_r[key] = on
+                state, _ = build_training(cfg_r, device=device, seed=0)
+                step = make_eager_train_step(cfg_r)
+                peak, resident = forward_peak(lambda: step(state, batch, 7))
+                peaks[on] = peak - resident
+                grads[on] = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+                del state, step
+            over, worst, worst_key = grad_ratios(grads[True], grads[False])
+            same = sum(torch.equal(grads[True][k], grads[False][k]) for k in grads[False])
+            assert over == 0, f"{label}: gradient {worst_key} differs with remat"
+            line += (f"; gradients with {key} against without: {same} of {len(grads[False])} "
+                     f"equal bit for bit, worst {worst:.3f} of phase 8's tolerance; the step's "
+                     f"peak memory {peaks[True] / 2**20:.1f} MiB with, "
+                     f"{peaks[False] / 2**20:.1f} MiB without")
+            del grads
+        log(line)
+        gc.collect()
+
+    # classification: the flagship width over the batch's 2 scenes as clouds
+    cfg_c = cfg0.copy()
+    cfg_c.update(num_classes=10, max_clouds=2, BATCH_SIZE=2)
+    model = PointConvFormer_Classification(cfg_c)
+    init_params(model, torch.Generator().manual_seed(3))
+    model = model.to(device)
+    bids = batch.bids[-1]
+    labels = torch.tensor([3, 7], device=device)
+    with torch.no_grad():
+        model.train()
+        model.forward_batch(batch, bids)
+        model.eval()
+        for fn in wrappers.values():
+            fn.launches = 0
+        logits = model.forward_batch(batch, bids)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        cpu_model = PointConvFormer_Classification(cfg_c)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_model.eval()
+        want = cpu_model.forward_batch(cpu_batch, bids.cpu())
+    err = (logits.cpu() - want).abs().max().item()
+    assert logits.shape == (2, 10) and torch.isfinite(logits).all()
+    assert torch.allclose(logits.cpu(), want, **MODEL_TOL), f"classification logits: {err:.3e}"
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    model.train()
+    set_generator(model, torch.Generator(device).manual_seed(0))
+    losses = []
+    for _ in range(2):
+        opt.zero_grad()
+        loss = F.cross_entropy(model.forward_batch(batch, bids), labels)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    set_generator(model, None)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert counts["window_resolve"] > 0 and counts["pcf_conv_linear"] > 0, counts
+    log(f"[variants] PointConvFormer_Classification, PCF_Normal width, 2 clouds: logits on the "
+        f"card against the CPU max abs err {err:.3e} (launches {counts}); 2 Adam train steps, "
+        f"losses {[round(v, 5) for v in losses]}")
+
+
 def conv_times(model, batch, summary):
     """Phase 14: B's and C's calls of one eval forward of the trained model
     on a device-pyramid batch (plain edges), each against its plain version,
@@ -2444,7 +2824,7 @@ def main() -> int:
                                                       window_resolve, window_resolve_flat,
                                                       window_resolve_plain,
                                                       windowed_take_flat_plain)
-    from pcf_torch.ops.kernels.window_scatter import (bucket_cap, window_scatter,
+    from pcf_torch.ops.kernels.window_scatter import (piece_len, window_scatter,
                                                       window_scatter_inverse, window_scatter_plain)
     from pcf_torch.ops.window import WindowedEdges
     from pcf_torch.parallel.mesh import make_eager_train_step
@@ -2647,6 +3027,10 @@ def main() -> int:
                     for args in cl:
                         err = max(err, check_call(kname, kern, plain, args,
                                                   label=f"{kname} {dtype_name} {mode}"))
+                        if kname != "window_resolve":
+                            assert torch.equal(kern(*args), kern(*args)), (
+                                f"{kname} {dtype_name} {mode}: two launches on the same "
+                                f"inputs differ")
                         if kname == "window_resolve" and baseline is not None:
                             assert torch.equal(baseline(*args), plain(*args)), (
                                 "baseline window_resolve not bit-exact")
@@ -2666,7 +3050,10 @@ def main() -> int:
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms, dtype=dtype_name)
                 log(f"[kernels] {kname} {dtype_name} {mode} mode: {len(cl)} calls per "
-                    f"forward, max abs err {err:.3e}, kernel {ms:.3f} ms, plain "
+                    f"forward"
+                    + ("" if kname == "window_resolve" else
+                       ", two launches of each equal bit for bit")
+                    + f", max abs err {err:.3e}, kernel {ms:.3f} ms, plain "
                     f"{plain_ms:.3f} ms, library "
                     f"{'-' if lib_ms is None else f'{lib_ms:.3f}'} ms, bound {b_ms:.4f} ms "
                     f"by {b_by} ({tot_b / 1e6:.1f} MB, {tot_o / 1e9:.2f} GOP)"
@@ -2797,7 +3184,12 @@ def main() -> int:
             for args in calls:
                 err = max(err, check_call("window_scatter", window_scatter, window_scatter_plain,
                                           args, label=f"window_scatter {dtype_name}"))
-            ms = cuda_ms(lambda: [window_scatter(*a) for a in calls])
+                assert torch.equal(window_scatter(*args), window_scatter(*args)), (
+                    f"window_scatter {dtype_name}: two launches on the same inputs differ")
+            log(f"[scatter] window_scatter {dtype_name}: two launches on the same inputs "
+                f"equal bit for bit in all {len(calls)} calls")
+            unshared_ms = cuda_ms(lambda: [window_scatter(*a) for a in calls])
+            ms = cuda_ms(lambda: shared_calls(window_scatter, calls))
             inverse_ms = cuda_ms(lambda: [window_scatter_inverse(*a) for a in calls])
             plain_ms = cuda_ms(lambda: [window_scatter_plain(*a) for a in calls], reps=3)
             # the yardstick: one index_add_ over the edges' rows (every row of
@@ -2812,17 +3204,17 @@ def main() -> int:
                         for (g, _, _, n, _), nei in zip(calls, neis)]
 
             lib_ms = cuda_ms(library)
-        # how much of the step's fan-in the buckets hold: the edges past a
-        # row's bucket go through the overflow pass
+        # how much of the step's fan-in the heavy rows hold: rows of more
+        # edges than a piece, summed piece by piece
         over = heavy = 0
         for _, wr, lt, n, _ in calls:
             rows = torch.gather(wr, 1, lt[:, 0].long().clamp(0, wr.shape[1] - 1)).reshape(-1)
             counts = torch.bincount(rows[(rows >= 0) & (rows < n)], minlength=n)
-            cap = bucket_cap(n, rows.numel())
-            over += int((counts - cap).clamp(min=0).sum())
+            cap = piece_len(n, rows.numel())
+            over += int(counts[counts > cap].sum())
             heavy += int((counts > cap).sum())
         log(f"[scatter] window_scatter {dtype_name}: {sum(a[2].numel() for a in calls)} edges "
-            f"per step, {over} past their row's bucket, {heavy} rows overflowed")
+            f"per step, {over} of them in {heavy} heavy rows (summed in pieces)")
         tot_b = sum(g.numel() * g.element_size() + (wr.numel() + lt.numel()) * 4
                     + n * g.shape[-1] * (4 + (2 if dt == torch.bfloat16 else 0))
                     for g, wr, lt, n, dt in calls)
@@ -2834,8 +3226,9 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
             dtype=dtype_name)
         log(f"[scatter] window_scatter {dtype_name}: {len(calls)} calls per train step, "
-            f"max abs err {err:.3e}, kernel {ms:.3f} ms (inverse {inverse_ms:.3f} ms, "
-            f"reduction {ms - inverse_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+            f"max abs err {err:.3e}, kernel {ms:.3f} ms as the step runs them (one inverse "
+            f"per edge set, shared_inverses), {unshared_ms:.3f} ms each call alone (of which "
+            f"the inverses {inverse_ms:.3f} ms), plain {plain_ms:.3f} ms, "
             f"index_add_ {lib_ms:.3f} ms, bound {b_ms:.4f} ms by bytes "
             f"({tot_b / 1e6:.1f} MB)")
     del train_runs, run, calls
@@ -3112,6 +3505,20 @@ def main() -> int:
                     pretrain=os.path.join(kept, "model"))
     finally:
         shutil.rmtree(kept, ignore_errors=True)
+
+    # ---- 16 mesh: data-parallel training on a 1-rank NCCL group ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    mesh_phase(cfg, batch, all_kernels, smi)
+    log(f"[mesh] phase 16: {time.time() - t0:.1f} s")
+
+    # ---- 17 variants: the off-default model keys and classification --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    variants_phase(all_kernels, smi)
+    log(f"[variants] phase 17: {time.time() - t0:.1f} s")
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

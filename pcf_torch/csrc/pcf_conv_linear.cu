@@ -44,6 +44,14 @@
 // value; C's contraction could run on mma (its x is bf16), which is not
 // built: the chunk of 8 channels is half an m16 tile.
 //
+// Deterministic: when several chunk ranges share a tile (blockIdx.z), each
+// stores its partial tile in its own f32 slot of a workspace, and a second
+// launch (sum_ranges_kernel, one thread per output element) adds the slots
+// in range order and then the bias. No float is added with an atomic, so
+// two launches on the same inputs give the same bits. (Kernel E's tile's
+// last block adds its slots itself; here that serial tail made the split
+// calls of B 30% slower at the flagship's coarse levels.)
+//
 // Numerics follow _contract_and_project (pconv_kernel.py:43-69): the
 // K-reduction runs in f32; with bf16 inputs the per-(c, w) partial and L are
 // rounded to bf16 before their product, which accumulates in f32. Output f32.
@@ -68,6 +76,7 @@ struct Args {
   const void* v;            // [M, K, W] T
   const float* bias;        // [O]
   float* out;               // [M, O]
+  float* work;              // split ranges: [csplits, M, O] f32 slots
   LView lv;                 // L [Ct*W, O] f32, or [Ct*W, OP] bf16 (OP = O rounded up to 8)
   int n_rows, C, Ct, wsz, mtk, E, W, O, M, K;  // E: H (B) or P (C)
   int ob;                   // O slice width (a multiple of 8 in bf16, of 4 in f32)
@@ -76,14 +85,24 @@ struct Args {
   int vvec;                 // v rows allow 4-element loads
 };
 
-// One output element: stored, or added when several channel-chunk ranges
-// (blockIdx.z) share the tile; the first range adds the bias.
+// One output element: stored with the bias, or, when several channel-chunk
+// ranges (blockIdx.z) share the tile, into this range's workspace slot.
 __device__ __forceinline__ void store_out(const Args& a, long long at, float v, int o) {
-  if (blockIdx.z == 0) v += a.bias[o];
   if (gridDim.z > 1)
-    atomicAdd(a.out + at, v);
+    __stcg(a.work + blockIdx.z * (long long)a.M * a.O + at, v);
   else
-    a.out[at] = v;
+    a.out[at] = v + a.bias[o];
+}
+
+// Split chunk ranges: out = bias + the ranges' slots, added in range order.
+__global__ void __launch_bounds__(kThreads)
+sum_ranges_kernel(const float* __restrict__ work, const float* __restrict__ bias,
+                  float* __restrict__ out, long long MO, int O, int Z) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= MO) return;
+  float v = 0.f;
+  for (int z = 0; z < Z; ++z) v += __ldcg(work + z * MO + i);
+  out[i] = v + bias[i % O];
 }
 
 // x[m, k, c..c+CC) of edge i = m*K + k of the tile (row: its clamped row),
@@ -261,12 +280,14 @@ __global__ void __launch_bounds__(kThreads, 1) conv_linear_kernel(const Args a) 
 struct Shape {
   Grid g;
   size_t smem;
+  long long work;  // workspace bytes: 0 without split ranges
 };
 
 Shape launch_shape(bool bf16, int Ct, int K, int W, int O, int M) {
   Shape s;
   s.g = split_grid(bf16, Ct, W, O, M, bf16 ? kMaxOBf16 : kMaxOF32, 2);
   s.smem = chunk_layout(bf16, K, W, s.g.obp, sizeof(int) * kPoints * K).end;
+  s.work = s.g.csplits > 1 ? (long long)sizeof(float) * s.g.csplits * M * O : 0;
   return s;
 }
 
@@ -277,11 +298,13 @@ int launch_kernel(KernelT kernel, const Args& a, const Shape& sh, cudaStream_t s
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (err != cudaSuccess) return (int)err;
-  if (sh.g.csplits > 1) {  // the chunk ranges add into a zeroed output
-    const cudaError_t e = cudaMemsetAsync(a.out, 0, sizeof(float) * (size_t)a.M * a.O, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // every block writes the whole of its partial tile: no memset
   kernel<<<dim3(sh.g.tiles, sh.g.splits, sh.g.csplits), kThreads, sh.smem, stream>>>(a);
+  if (sh.g.csplits > 1) {
+    const long long MO = (long long)a.M * a.O;
+    sum_ranges_kernel<<<(unsigned)((MO + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        a.work, a.bias, a.out, MO, a.O, sh.g.csplits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -309,7 +332,7 @@ int launch(bool bf16, const Args& a, const Shape& sh, cudaStream_t s) {
 int run(bool pe, int bf16, const void* feats, int n_rows, int C, const void* nei,
         const void* window_rows, const void* localT, int wsz, int mtk, const void* extra,
         int E, const void* v, int W, const void* L, const void* bias, int O, void* out,
-        int M, int K, void* stream) {
+        void* work, long long work_bytes, int M, int K, void* stream) {
   if (M == 0 || O == 0) return 0;
   if (M < 0 || K <= 0 || C <= 0 || W <= 0 || W > 16 || n_rows <= 0 || E < 0 ||
       (!pe && (E <= 0 || C % E != 0)) ||
@@ -317,7 +340,8 @@ int run(bool pe, int bf16, const void* feats, int n_rows, int C, const void* nei
     return (int)cudaErrorInvalidValue;
   const int Ct = pe ? C + E : C;
   const Shape sh = launch_shape(bf16 != 0, Ct, K, W, O, M);
-  if (sh.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (sh.smem > kMaxSmem || work_bytes < sh.work || (sh.work > 0 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.feats = feats;
   a.nei = static_cast<const int*>(nei);
@@ -327,6 +351,7 @@ int run(bool pe, int bf16, const void* feats, int n_rows, int C, const void* nei
   a.v = v;
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<float*>(out);
+  a.work = static_cast<float*>(work);
   a.lv.L = L;
   a.lv.CW = Ct * W;
   a.lv.W = W;
@@ -358,15 +383,17 @@ int run(bool pe, int bf16, const void* feats, int n_rows, int C, const void* nei
 // f32. L is [C*W, O] f32 for f32 operands and, for bf16 ones, [C*W, OP]
 // bf16 (L rounded, columns zero-padded to OP = O rounded up to 8); bias [O]
 // f32; out [M, O] f32. nei may be null, and then window_rows / localT / wsz
-// / mtk give the rows. W <= 16.
+// / mtk give the rows. W <= 16. work: at least the workspace bytes of
+// pcf_conv_linear_shape (work_bytes), may be null when that is 0.
 extern "C" int pcf_conv_linear(int bf16, const void* feats, int n_rows, int C,
                                const void* nei, const void* window_rows,
                                const void* localT, int wsz, int mtk,
                                const void* guidance, int H, const void* v, int W,
                                const void* L, const void* bias, int O, void* out,
-                               int M, int K, void* stream) {
+                               void* work, long long work_bytes, int M, int K,
+                               void* stream) {
   return run(false, bf16, feats, n_rows, C, nei, window_rows, localT, wsz, mtk, guidance, H,
-             v, W, L, bias, O, out, M, K, stream);
+             v, W, L, bias, O, out, work, work_bytes, M, K, stream);
 }
 
 // Kernel C: as kernel B with add [M, K, P] (P >= 0; may be null if P == 0)
@@ -376,17 +403,17 @@ extern "C" int pconv_pe_conv_linear(int bf16, const void* feats, int n_rows, int
                                     const void* nei, const void* window_rows,
                                     const void* localT, int wsz, int mtk, const void* add,
                                     int P, const void* v, int W, const void* L,
-                                    const void* bias, int O, void* out, int M, int K,
-                                    void* stream) {
+                                    const void* bias, int O, void* out, void* work,
+                                    long long work_bytes, int M, int K, void* stream) {
   return run(true, bf16, feats, n_rows, C, nei, window_rows, localT, wsz, mtk, add, P, v, W,
-             L, bias, O, out, M, K, stream);
+             L, bias, O, out, work, work_bytes, M, K, stream);
 }
 
-// The launch shape of kernel B (Ct = C) or C (Ct = C + P): shape[0..7] =
+// The launch shape of kernel B (Ct = C) or C (Ct = C + P): shape[0..8] =
 // points per block, O slices, columns per slice, channel-chunk ranges,
 // blocks, dynamic shared memory bytes, threads per block, tensor cores (1:
-// the projection on mma.sync m16n8k16 bf16, 0: CUDA cores). The contraction
-// runs on the CUDA cores in both.
+// the projection on mma.sync m16n8k16 bf16, 0: CUDA cores), workspace
+// bytes. The contraction runs on the CUDA cores in both.
 extern "C" void pcf_conv_linear_shape(int bf16, int Ct, int K, int W, int O, int M,
                                       long long* shape) {
   const Shape sh = launch_shape(bf16 != 0, Ct, K, W, O, M);
@@ -398,4 +425,5 @@ extern "C" void pcf_conv_linear_shape(int bf16, int Ct, int K, int W, int O, int
   shape[5] = (long long)sh.smem;
   shape[6] = kThreads;
   shape[7] = bf16 != 0;
+  shape[8] = sh.work;
 }

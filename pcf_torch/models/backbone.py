@@ -7,9 +7,18 @@ pyramid without a batch dim:
 
 The localized offsets and VI features of a level are computed once per stage
 and shared by its residual blocks, as in pcf_tpu/models/backbone.py: with
+cfg.cm_geom channel-major from the window resolve's rows, with
 cfg.flat_geom in k-major flat layout through the flat window resolve, and
 not at all where every block of the stage takes the whole-layer inference
 kernel (cfg.fused_eval), which computes its own.
+
+cfg.transformer_type other than "PCF" builds PointTransformerLayers in
+place of the PCFLayers (strided convs and residual blocks past
+guided_level). cfg.remat_layers recomputes every strided and decoder conv
+layer in the backward, cfg.remat_deconv only the decoder's transpose convs
+(maybe_remat, remat_call): with the checkpoint machinery of
+nn/resstack.py, which replays the forward's random draws and moves the BN
+running statistics once.
 """
 
 from __future__ import annotations
@@ -17,16 +26,37 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pcf_torch.nn.fused_eval import fused_eval_ok
-from pcf_torch.nn.layers import (PCFLayer, PointConv, PointConvStridePE,
-                                 check_ported, dtype_of)
+from pcf_torch.nn.layers import (PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE,
+                                 PointTransformerLayer, check_ported, dtype_of)
 from pcf_torch.nn.norm import LinearBN
-from pcf_torch.nn.resstack import ResBlockStack
+from pcf_torch.nn.resstack import ResBlockStack, remat_contexts
 from pcf_torch.ops.gather import index_points, index_points_multi
-from pcf_torch.ops.vi_transform import (VI_coordinate_transform, localize_flat,
-                                        split_geom_flat, vi_transform_flat)
-from pcf_torch.ops.window import WindowedEdges, windowed_take_flat
+from pcf_torch.ops.vi_transform import (VI_coordinate_transform, localize_cm, localize_flat,
+                                        split_geom_flat, vi_transform_cm, vi_transform_flat)
+from pcf_torch.ops.window import WindowedEdges, windowed_take_cm, windowed_take_flat
+
+
+def maybe_remat(cls, cfg) -> bool:
+    """Whether layers of class `cls` are recomputed in the backward
+    (pcf_tpu's maybe_remat, models/backbone.py:36-58): every one under
+    cfg.remat_layers, the decoder's PointConvTransposePE under
+    cfg.remat_deconv. The class is tested by identity, not by name."""
+    return bool(cfg.get("remat_layers")) or (
+        bool(cfg.get("remat_deconv")) and cls is PointConvTransposePE)
+
+
+def remat_call(layer: nn.Module, remat: bool, *args):
+    """layer(*args), recomputed in the backward when `remat` and a gradient
+    is being built."""
+    if remat and torch.is_grad_enabled():
+        # the port draws from no global random state, so checkpoint need
+        # not stash it
+        return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=remat_contexts)
+    return layer(*args)
 
 
 def _skip_stage_geometry(cfg, nei_inds, training, block_cls) -> bool:
@@ -48,6 +78,17 @@ def _stage_geometry(xyz, nei_inds, norms, use_vi, cfg=None):
     flat, [M, K*3] and [M, K*12], from the flat resolve, and carry no
     gradient (pcf_tpu stops it there too)."""
     dtype = None if cfg is None else dtype_of(cfg)
+    if cfg is not None and cfg.get("cm_geom") and isinstance(nei_inds, WindowedEdges):
+        if use_vi:
+            g6 = windowed_take_cm(torch.cat([xyz, norms], -1), nei_inds)
+            loc_cm = localize_cm(g6[:3], xyz)
+            localized = loc_cm.permute(1, 2, 0)
+            vi = vi_transform_cm(loc_cm, g6[3:], norms).permute(1, 2, 0)
+            if dtype is not None:
+                localized, vi = localized.to(dtype), vi.to(dtype)
+            return localized, vi
+        localized = localize_cm(windowed_take_cm(xyz, nei_inds), xyz).permute(1, 2, 0)
+        return (localized if dtype is None else localized.to(dtype)), None
     if cfg is not None and cfg.get("flat_geom") and isinstance(nei_inds, WindowedEdges):
         if use_vi:
             gx, gn = split_geom_flat(windowed_take_flat(torch.cat([xyz, norms], -1),
@@ -74,16 +115,15 @@ class PCF_Backbone(nn.Module):
     def __init__(self, cfg, input_feat_dim: int = 3):
         super().__init__()
         check_ported(cfg)
-        if cfg.transformer_type != "PCF":
-            raise NotImplementedError(
-                "transformer_type other than 'PCF' (PointTransformerLayer) is not "
-                "ported to pcf_torch yet")
         self.cfg = cfg
+        self.remat = set()  # names of the layers maybe_remat recomputes
         wni_dim = cfg.point_dim + 9 if cfg.USE_VI else cfg.point_dim
         in_feat_dim = input_feat_dim + 3 if cfg.USE_XYZ else input_feat_dim
         if cfg.use_level_1:
             self.selfpointconv = PointConv(in_feat_dim, cfg.base_dim, cfg,
                                            (wni_dim, cfg.mid_dim[0]))
+            if maybe_remat(PointConv, cfg):
+                self.remat.add("selfpointconv")
             self.selfpointconv_res = ResBlockStack(
                 PointConvStridePE, 2, cfg.base_dim, cfg, (wni_dim, cfg.mid_dim[0]))
         else:
@@ -94,10 +134,18 @@ class PCF_Backbone(nn.Module):
             weightnet = (wni_dim, cfg.mid_dim[i])
             if i <= cfg.guided_level:
                 conv = PointConvStridePE(in_ch, out_ch, cfg, weightnet)
-            else:
+            elif cfg.transformer_type == "PCF":
                 conv = PCFLayer(in_ch, out_ch, cfg, weightnet, cfg.num_heads)
+            else:
+                conv = PointTransformerLayer(in_ch, out_ch, cfg, cfg.num_heads)
             self.add_module(f"pointconv_{i - 1}", conv)
-            if cfg.resblocks[i] > 0:
+            if maybe_remat(type(conv), cfg):
+                self.remat.add(f"pointconv_{i - 1}")
+            if cfg.transformer_type != "PCF" and i > cfg.guided_level:
+                for j in range(cfg.resblocks[i]):
+                    self.add_module(f"pointconv_res_{i - 1}_{j}", PointTransformerLayer(
+                        out_ch, out_ch, cfg, cfg.num_heads))
+            elif cfg.resblocks[i] > 0:
                 block_cls = PointConvStridePE if i <= cfg.guided_level else PCFLayer
                 self.add_module(f"pointconv_res_{i - 1}", ResBlockStack(
                     block_cls, cfg.resblocks[i], out_ch, cfg, weightnet, cfg.num_heads))
@@ -111,7 +159,8 @@ class PCF_Backbone(nn.Module):
         if cfg.use_level_1:
             localized0, vi_features = self._geometry(pointclouds[0], edges_self[0],
                                                      norms[0], PointConvStridePE)
-            feat, _ = self.selfpointconv(
+            feat, _ = remat_call(
+                self.selfpointconv, "selfpointconv" in self.remat,
                 pointclouds[0], feat, edges_self[0], norms[0], None, None,
                 vi_features, localized0, masks[0], None)
             feat = self.selfpointconv_res(
@@ -123,9 +172,20 @@ class PCF_Backbone(nn.Module):
 
         feat_list = [feat]
         for i in range(1, cfg.num_level):
-            feat, _ = getattr(self, f"pointconv_{i - 1}")(
-                pointclouds[i - 1], feat_list[-1], edges_forward[i - 1],
-                norms[i - 1], pointclouds[i], norms[i], None, None,
+            name = f"pointconv_{i - 1}"
+            conv = getattr(self, name)
+            if isinstance(conv, PointTransformerLayer):
+                feat = remat_call(conv, name in self.remat, pointclouds[i - 1],
+                                  feat_list[-1], edges_forward[i - 1], pointclouds[i],
+                                  masks[i - 1], masks[i])
+                for j in range(cfg.resblocks[i]):
+                    feat = getattr(self, f"pointconv_res_{i - 1}_{j}")(
+                        pointclouds[i], feat, edges_self[i], dense_mask=masks[i])
+                feat_list.append(feat)
+                continue
+            feat, _ = remat_call(
+                conv, name in self.remat, pointclouds[i - 1], feat_list[-1],
+                edges_forward[i - 1], norms[i - 1], pointclouds[i], norms[i], None, None,
                 masks[i - 1], masks[i])
             if cfg.resblocks[i] > 0:
                 block_cls = PointConvStridePE if i <= cfg.guided_level else PCFLayer

@@ -3,7 +3,8 @@
 The decoder walks the pyramid from the coarsest level back to level 0 with
 PointConvTransposePE (encoder features skip-added), optional residual
 blocks, then fc1 (+BN) -> dropout -> fc2, as
-pcf_tpu/models/segmentation.py.
+pcf_tpu/models/segmentation.py. cfg.remat_layers and cfg.remat_deconv
+recompute decoder layers in the backward (models/backbone.maybe_remat).
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 from torch import nn
 from torch.nn import functional as F
 
-from pcf_torch.models.backbone import PCF_Backbone, _skip_stage_geometry, _stage_geometry
+from pcf_torch.models.backbone import (PCF_Backbone, _skip_stage_geometry, _stage_geometry,
+                                      maybe_remat, remat_call)
 from pcf_torch.nn.init import Dense
 from pcf_torch.nn.layers import (PointConvStridePE, PointConvTransposePE, dropout,
                                  dtype_of)
@@ -29,6 +31,8 @@ class PointConvFormer_Segmentation(nn.Module):
         weightnet = (wni_dim, cfg.mid_dim_back)
         self.resblocks_back = cfg.get("resblocks_back", [0] * L)
         self.pcf_backbone = PCF_Backbone(cfg)
+        self.remat = {c for c in (PointConvTransposePE, PointConvStridePE)
+                      if maybe_remat(c, cfg)}  # classes of decoder layers recomputed
         for idx, i in enumerate(range(L - 2, -1, -1)):
             in_ch = cfg.feat_dim[i + 1]
             out_ch = cfg.base_dim if i == 0 else cfg.feat_dim[i]
@@ -52,7 +56,8 @@ class PointConvFormer_Segmentation(nn.Module):
                                       edges_forward, norms, masks=masks)
         feat = feat_list[-1]
         for idx, i in enumerate(range(L - 2, -1, -1)):
-            feat, _ = getattr(self, f"pointdeconv_{idx}")(
+            feat, _ = remat_call(
+                getattr(self, f"pointdeconv_{idx}"), PointConvTransposePE in self.remat,
                 pointclouds[i + 1], feat, edges_propagate[i], norms[i + 1],
                 pointclouds[i], norms[i], feat_list[i], None, masks[i], masks[i + 1])
             if cfg.resblocks[i] != 0 and self.resblocks_back[i] > 0:
@@ -62,9 +67,11 @@ class PointConvFormer_Segmentation(nn.Module):
                     localized, vi_features = _stage_geometry(
                         pointclouds[i], edges_self[i], norms[i], use_vi=cfg.USE_VI, cfg=cfg)
                 for j in range(self.resblocks_back[i]):
-                    feat, _ = getattr(self, f"pointdeconv_res_{idx}_{j}")(
-                        pointclouds[i], feat, edges_self[i], norms[i], None, None,
-                        vi_features, localized, masks[i], None)
+                    feat, _ = remat_call(
+                        getattr(self, f"pointdeconv_res_{idx}_{j}"),
+                        PointConvStridePE in self.remat, pointclouds[i], feat,
+                        edges_self[i], norms[i], None, None, vi_features, localized,
+                        masks[i], None)
         fc = F.relu(self.fc1(feat, masks[0]))
         fc = dropout(fc, cfg.dropout_fc, self.training, self.generator)
         return self.fc2(fc)

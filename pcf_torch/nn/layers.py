@@ -10,6 +10,8 @@ same sub-module names:
   PointConvStridePE     bottleneck + PE + residual (strided or same-level)
   PCFLayer              guidance-modulated conv (the PCF block)
   PointConvTransposePE  decoder upsampling conv
+  PointTransformerLayer the PointTransformer block (cfg.transformer_type
+                        other than "PCF"), an ablation alternative to PCFLayer
 
 With cfg.USE_PALLAS_KERNEL (nn/fused.fused_wins), a layer's gather +
 guidance/PE + contraction + linear runs in one fused kernel
@@ -40,14 +42,16 @@ from pcf_torch.nn.fused import FusedConvLinear, fused_wins
 from pcf_torch.nn.fused_eval import (fused_eval_ok, try_pcf_fused_eval,
                                      try_pointconv_fused_eval, try_stride_pe_fused_eval,
                                      try_transpose_fused_eval)
-from pcf_torch.nn.guidance import MultiHeadGuidance
-from pcf_torch.nn.norm import LinearBN, UnaryBlock
+from pcf_torch.nn.guidance import MultiHeadGuidance, MultiHeadGuidanceQK
+from pcf_torch.nn.init import Dense
+from pcf_torch.nn.norm import LinearBN, MaskedBatchNorm, UnaryBlock
 from pcf_torch.nn.weightnet import WeightNet
 from pcf_torch.ops.gather import index_points, index_points_multi
 from pcf_torch.ops.pconv import guided_contraction, pconv
 from pcf_torch.ops.vi_transform import VI_coordinate_transform
+from pcf_torch.ops.window import WindowedEdges
 
-_NOT_PORTED = ("cm_geom", "spatial_axis", "remat_layers", "remat_deconv")
+_NOT_PORTED = ("spatial_axis",)
 
 
 def check_ported(cfg) -> None:
@@ -351,10 +355,6 @@ class PCFLayer(nn.Module):
                  guidance_feat_len: int = 32):
         super().__init__()
         check_ported(cfg)
-        if cfg.attention_type != "subtraction":
-            raise NotImplementedError(
-                "attention_type other than 'subtraction' (MultiHeadGuidanceQK) "
-                "is not ported to pcf_torch yet")
         self.cfg = cfg
         self.in_channel, self.out_channel = in_channel, out_channel
         dtype = dtype_of(cfg)
@@ -367,10 +367,12 @@ class PCFLayer(nn.Module):
         self.guidance_unary = UnaryBlock(c4, guidance_feat_len, no_relu=True, dtype=dtype)
         self.mlp_conv = LinearBN(wni_dim, guidance_feat_len, use_bn=cfg.BATCH_NORM,
                                  dtype=dtype)
-        self.guidance_weight = MultiHeadGuidance(
+        self.guidance_weight = (MultiHeadGuidance(
             2 * guidance_feat_len, num_heads,
             layer_norm_guidance=cfg.layer_norm_guidance, use_bn=cfg.BATCH_NORM,
-            dtype=dtype)
+            dtype=dtype) if cfg.attention_type == "subtraction" else MultiHeadGuidanceQK(
+            2 * guidance_feat_len, num_heads, 2 * guidance_feat_len, key_dim=16,
+            use_bn=cfg.BATCH_NORM, dtype=dtype))
         self.weightnet = WeightNet(wni_dim, mid, efficient=True,
                                    use_bn=cfg.BATCH_NORM, dtype=dtype)
         self.linear = (FusedConvLinear(c4 * mid, out_channel // 2,
@@ -530,3 +532,64 @@ class PointConvTransposePE(nn.Module):
         for i in range(self.n_mlp2):
             new_feat = F.relu(getattr(self, f"mlp2_convs_{i}")(new_feat, out_mask))
         return new_feat
+
+
+class PointTransformerLayer(nn.Module):
+    """PointTransformer block (pcf_tpu/nn/layers.py:695-774): vector
+    attention over the K neighbours, w = softmax_K(MLP(k - q + p)) per
+    channel group of share_planes, out = sum_K w * (v + p), where p =
+    MLP(offset). Its neighbour gathers go through index_points: on windowed
+    edges the window resolve (kernel A on the card)."""
+
+    def __init__(self, in_planes: int, out_planes: int, cfg, share_planes: int = 8):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.in_planes, self.out_planes, self.share_planes = in_planes, out_planes, share_planes
+        dtype = dtype_of(cfg)
+        mid = out_planes
+        self.linear_q = Dense(in_planes, mid, dtype=dtype)
+        self.linear_k = Dense(in_planes, mid, dtype=dtype)
+        self.linear_v = Dense(in_planes, out_planes, dtype=dtype)
+        # linear_p: Linear_BN(3, 3) + ReLU + Linear(3, out)
+        self.linear_p_0 = LinearBN(3, 3, use_bn=cfg.BATCH_NORM, dtype=dtype)
+        self.linear_p_1 = Dense(3, out_planes, dtype=dtype)
+        if cfg.BATCH_NORM:
+            self.bn_w = MaskedBatchNorm(mid)
+        self.linear_w_0 = LinearBN(mid, mid // share_planes, use_bn=cfg.BATCH_NORM,
+                                   dtype=dtype)
+        self.linear_w_1 = Dense(mid // share_planes, out_planes // share_planes, dtype=dtype)
+        if in_planes != out_planes:
+            self.unary_shortcut = UnaryBlock(in_planes, out_planes, use_bn=True,
+                                             no_relu=True, dtype=dtype)
+
+    def forward(self, xyz, feats, nei_inds, sparse_xyz=None, dense_mask=None,
+                sparse_mask=None):
+        dtype = dtype_of(self.cfg)
+        if dtype is not None:
+            feats = feats.to(dtype)
+        strided = sparse_xyz is not None
+        out_mask = sparse_mask if strided else dense_mask
+        center_xyz = sparse_xyz if strided else xyz
+        mid, c, s = self.out_planes, self.out_planes, self.share_planes
+
+        feats_q = self.linear_q(feats)
+        feats_k = index_points(self.linear_k(feats), nei_inds)
+        feats_v = index_points(self.linear_v(feats), nei_inds)
+        dxyz = index_points(xyz, nei_inds) - center_xyz[:, None, :]
+        p = self.linear_p_1(F.relu(self.linear_p_0(dxyz, out_mask)))
+        nei = nei_inds.nei if isinstance(nei_inds, WindowedEdges) else nei_inds
+        # strided: the query is the centre's nearest neighbour's
+        q = index_points(feats_q, nei[:, 0]) if strided else feats_q
+        M, K = nei.shape
+        w = feats_k - q[:, None, :] + p.reshape(M, K, c // mid, mid).sum(2)
+        if self.cfg.BATCH_NORM:
+            w = self.bn_w(w, out_mask)
+        w = F.relu(self.linear_w_0(F.relu(w), out_mask))
+        w = torch.softmax(self.linear_w_1(w), dim=1)
+        v = (feats_v + p).reshape(M, K, s, c // s)
+        new_feats = (v * w[:, :, None, :]).sum(1).reshape(M, c)
+        sparse_feats = index_points(feats, nei_inds).amax(dim=1) if strided else feats
+        shortcut = (self.unary_shortcut(sparse_feats, out_mask)
+                    if self.in_planes != self.out_planes else sparse_feats)
+        return F.leaky_relu(new_feats + shortcut, 0.1)

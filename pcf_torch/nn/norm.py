@@ -15,6 +15,15 @@ The output keeps the input's dtype. Training mode is the module's
 statistics as they are (the recompute of a rematerialised block,
 nn/resstack.py).
 
+SyncBN (pcf_tpu's axis_name, :82-85): inside `synced_batch_stats(group)`
+the masked (s, s^2, count) of a training forward are summed over the
+process group's ranks, packed into one tensor, before the mean and variance
+are formed, so every rank normalises with, and moves its running statistics
+by, the statistics of all ranks' rows. JAX differentiates its psum: the
+transpose of a psum is a psum of the cotangents, so the backward sums the
+statistics' cotangents over the ranks too (_AllReduceSum). The parallel
+train step enters the context when cfg.bn_axis_name is set.
+
 With `flat_k` = K (pcf_tpu's flat-lane mode, cfg.flat_geom) the input is
 k-major flat [M, K*c]: statistics stay per channel, pooled over K, and the
 parameters are those of the 3-D form. pcf_tpu applies a block-diagonal
@@ -28,6 +37,7 @@ import contextvars
 from contextlib import contextmanager
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -35,6 +45,41 @@ from pcf_torch.nn.init import Dense
 
 
 _FROZEN = contextvars.ContextVar("frozen_running_stats", default=False)
+_SYNC = contextvars.ContextVar("synced_batch_stats", default=None)
+
+
+@contextmanager
+def synced_batch_stats(group):
+    """MaskedBatchNorm in training sums its statistics over the ranks of
+    `group` inside this context (in this thread); None: no sync."""
+    token = _SYNC.set(group)
+    try:
+        yield
+    finally:
+        _SYNC.reset(token)
+
+
+def sync_group():
+    """The process group of the innermost synced_batch_stats, or None."""
+    return _SYNC.get()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """psum over a process group, differentiable as JAX's: the backward is a
+    psum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 @contextmanager
@@ -77,6 +122,12 @@ class MaskedBatchNorm(nn.Module):
                 m = m.expand(x.shape[:-1] + (1,)).reshape(-1, 1)
                 cnt = m.sum()
                 s, s2 = (xf * m).sum(0), (xf * xf * m).sum(0)
+            group = _SYNC.get()
+            if group is not None:
+                s, s2, cnt = _AllReduceSum.apply(
+                    torch.cat([s, s2, cnt.reshape(1)]), group).split(
+                        [self.features, self.features, 1])
+                cnt = cnt[0]
             cnt = cnt.clamp_min(1.0)
             mean = s / cnt
             var = (s2 / cnt - mean * mean).clamp_min(0.0)

@@ -25,15 +25,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pcf_torch.nn.layers import PCFLayer, kept_draws
-from pcf_torch.nn.norm import frozen_running_stats
+from pcf_torch.nn.norm import frozen_running_stats, sync_group, synced_batch_stats
 
 
 @contextmanager
-def _recompute(draws: list):
+def _recompute(draws: list, group):
     """checkpoint's recompute of a block in the backward: its dropout and
-    DropPath masks are the ones its forward drew (`draws`), and the BN
-    running statistics stay as they are."""
-    with frozen_running_stats(), kept_draws(draws, replay=True):
+    DropPath masks are the ones its forward drew (`draws`), the BN running
+    statistics stay as they are, and its BN statistics are summed over the
+    process group its forward summed them over (SyncBN)."""
+    with frozen_running_stats(), kept_draws(draws, replay=True), synced_batch_stats(group):
         yield
 
 
@@ -41,12 +42,12 @@ def _features(block: nn.Module, *args, **kwargs):
     return block(*args, **kwargs)[0]
 
 
-def _remat_contexts():
+def remat_contexts():
     """checkpoint's context_fn: the forward records the block's random draws
     and the recompute replays them. The generator's state is never read or
     set, which a CUDA graph capture would refuse."""
     draws = []
-    return kept_draws(draws, replay=False), _recompute(draws)
+    return kept_draws(draws, replay=False), _recompute(draws, sync_group())
 
 
 class ResBlockStack(nn.Module):
@@ -70,7 +71,7 @@ class ResBlockStack(nn.Module):
                 # need not stash it
                 feats = checkpoint(_features, block, *args,
                                    use_reentrant=False, preserve_rng_state=False,
-                                   context_fn=_remat_contexts,
+                                   context_fn=remat_contexts,
                                    **kwargs)
             else:
                 feats, _ = block(*args, **kwargs)

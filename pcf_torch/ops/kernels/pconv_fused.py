@@ -10,7 +10,10 @@ replace pcf_tpu/ops/pallas/pconv_kernel.py::_make_pcf_kernel and
 Both are one CUDA source, csrc/pcf_conv_linear.cu (C is a template mode of
 B's kernel: 64-point tiles, L staged by cp.async, the bf16 projection on the
 tensor cores), which says what bounds them and how a block keeps the
-[M, Ct*W] contraction output out of device memory.
+[M, Ct*W] contraction output out of device memory. Both are deterministic:
+split channel ranges meet in a workspace (workspace_bytes) and a second
+launch sums them in range order, so two launches on the same inputs give
+the same bits.
 
 Each wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors, or raises; there is no fallback. `edges` is either the
@@ -125,21 +128,35 @@ def _lib() -> ctypes.CDLL:
     lib.pcf_conv_linear_shape.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ll)]
     lib.pcf_conv_linear_shape.restype = None
     for fn in (lib.pcf_conv_linear, lib.pconv_pe_conv_linear):
-        fn.argtypes = [i, p, i, i, p, p, p, i, i, p, i, p, i, p, p, i, p, i, i, p]
+        fn.argtypes = [i, p, i, i, p, p, p, i, i, p, i, p, i, p, p, i, p, p, ll, i, i, p]
         fn.restype = i
     return lib
+
+
+def workspace_bytes(c_splits: int, M: int, O: int) -> int:
+    """The f32 workspace of a launch of kernel B or C with these channel-chunk
+    ranges: with split ranges, a partial [M, O] slot per range, which a
+    second launch adds in range order; else 0."""
+    return 4 * c_splits * M * O if c_splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def _shape(bf16: bool, Ct: int, K: int, W: int, O: int, M: int) -> tuple:
+    out = (ctypes.c_longlong * 9)()
+    _lib().pcf_conv_linear_shape(int(bf16), Ct, K, W, O, M, out)
+    return tuple(out)
 
 
 def launch_shape(C: int, K: int, W: int, O: int, M: int, bf16: bool, P: int = 0) -> dict:
     """The launch shape of kernel B (P = 0) or C (PE width P) for these
     sizes: points per block, O slices and columns per slice, channel-chunk
-    ranges (blocks that add their partial outputs), blocks, dynamic shared
-    memory bytes, threads per block, and where the contraction and the
-    projection run."""
-    out = (ctypes.c_longlong * 8)()
-    _lib().pcf_conv_linear_shape(int(bf16), C + P, K, W, O, M, out)
+    ranges (blocks whose partial outputs meet in an f32 workspace, summed in
+    range order), blocks, dynamic shared memory bytes, threads per block,
+    workspace bytes, and where the contraction and the projection run."""
+    out = _shape(bool(bf16), C + P, K, W, O, M)
     return dict(points=out[0], o_slices=out[1], o_per_slice=out[2], c_splits=out[3],
-                blocks=out[4], smem=out[5], threads=out[6], contraction="CUDA cores f32",
+                blocks=out[4], smem=out[5], threads=out[6], workspace=out[8],
+                contraction="CUDA cores f32",
                 projection="mma.sync m16n8k16 bf16" if out[7] else "CUDA cores f32")
 
 
@@ -215,10 +232,15 @@ def _launch(name, feats, edges, extra, weights, linear_w, linear_b, keep_weight=
         Wsz = MtK = 0
         nei, wr, lt = edges.data_ptr(), None, None
     out = torch.empty((M, O), dtype=torch.float32, device=dev)
+    bf16 = feats.dtype == torch.bfloat16
+    sh = _shape(bf16, Ct, K, W, O, M)
+    work = workspace_bytes(sh[3], M, O)
+    ws = torch.empty(work, dtype=torch.uint8, device=dev) if work else None
     err = getattr(_lib(), name)(
-        int(feats.dtype == torch.bfloat16), feats.data_ptr(), N, C, nei, wr, lt,
+        int(bf16), feats.data_ptr(), N, C, nei, wr, lt,
         Wsz, MtK, extra.data_ptr(), E, weights.data_ptr(), W,
-        linear_w.data_ptr(), linear_b.data_ptr(), O, out.data_ptr(), M, K,
+        linear_w.data_ptr(), linear_b.data_ptr(), O, out.data_ptr(),
+        None if ws is None else ws.data_ptr(), work, M, K,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")

@@ -6,7 +6,10 @@ pcf_tpu/ops/vi_transform.VI_coordinate_transform.
 The `*_flat` functions take and return the k-major flat layout [M, K*c]
 (lane k*c + c') of pcf_tpu's flat stage geometry. pcf_tpu computes them with
 constant 0/1 selection matrices, a TPU lane trick; here they are the same
-arithmetic on [M, K, c] views.
+arithmetic on [M, K, c] views. The `*_cm` functions take and return the
+channel-major layout [c, M, K] of pcf_tpu's cm_geom stage geometry
+(pcf_tpu/ops/vi_transform.py:233-279), the same arithmetic on permuted
+views.
 """
 
 from __future__ import annotations
@@ -70,3 +73,17 @@ def vi_transform_flat(loc_flat: torch.Tensor, gn_flat: torch.Tensor,
     vi = VI_coordinate_transform(loc_flat.float().reshape(M, -1, 3),
                                  gn_flat.float().reshape(M, -1, 3), center_norm.float())
     return vi.reshape(M, -1)
+
+
+def localize_cm(gathered_xyz_cm: torch.Tensor, center_xyz: torch.Tensor) -> torch.Tensor:
+    """[3, M, K] gathered coordinates minus their centres [M, 3]."""
+    return gathered_xyz_cm - center_xyz.T[:, :, None]
+
+
+def vi_transform_cm(localized_cm: torch.Tensor, gathered_norm_cm: torch.Tensor,
+                    sparse_xyz_norm: torch.Tensor) -> torch.Tensor:
+    """VI features channel-major: [3, M, K] offsets and neighbour normals,
+    [M, 3] centre normals -> [12, M, K], rows theta1..9 then the offset."""
+    vi = VI_coordinate_transform(localized_cm.permute(1, 2, 0),
+                                 gathered_norm_cm.permute(1, 2, 0), sparse_xyz_norm)
+    return vi.permute(2, 0, 1)

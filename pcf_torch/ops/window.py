@@ -14,7 +14,10 @@ table[nei.clamp(0, N-1)]. It is differentiable in the table: the backward
 is the window_scatter kernel (or its plain version), which drops the
 gradient of out-of-range rows as pcf_tpu's custom VJP does.
 `windowed_take_flat` is the same selection in k-major flat layout
-[M, K*C], with no gradient (ops/kernels/window_resolve.py).
+[M, K*C], and `windowed_take_cm` in channel-major layout [C, M, K], both
+with no gradient (geometry is data). pcf_tpu computes the channel-major
+form as a one-hot einsum (pcf_tpu/ops/window.py:486-505); here it is the
+window resolve's rows, permuted.
 """
 
 from __future__ import annotations
@@ -173,3 +176,11 @@ def windowed_take_flat(table: torch.Tensor, edges: WindowedEdges) -> torch.Tenso
     out[m, k*C + c] == table[nei[m, k], c]; no gradient (geometry is data)."""
     return window_resolve_flat(table.contiguous(), edges.window_rows, edges.localT,
                                edges.nei.shape[1])
+
+
+def windowed_take_cm(table: torch.Tensor, edges: WindowedEdges) -> torch.Tensor:
+    """table[edges.nei] channel-major: [N, C] -> [C, M, K], with
+    out[c, m, k] == table[nei[m, k], c] (a permuted view of the resolved
+    rows); no gradient (geometry is data)."""
+    with torch.no_grad():
+        return windowed_take(table.detach(), edges).permute(2, 0, 1)

@@ -1,11 +1,12 @@
-"""The steps on one device (mesh.py) and their CUDA graphs (graphs.py).
+"""The steps, on one device or a data mesh (mesh.py), and their CUDA graphs
+(graphs.py).
 
 The steps are imported at first use, so that graphs.py can be imported
 without the model code (serve/export.ServingModel replays graphs of
 exported programs)."""
 
 _STEPS = ("make_eager_eval_step", "make_eager_train_step", "make_eval_step",
-          "make_train_step", "step_seed")
+          "make_mesh", "make_train_step", "step_seed")
 
 
 def __getattr__(name):

@@ -1,11 +1,24 @@
-"""The train and eval steps on one device.
+"""The train and eval steps, on one device or data-parallel over a mesh.
 
-The single-device body of pcf_tpu/parallel/mesh.py's make_train_step and
-make_eval_step: forward in train mode, loss, backward, clip and optimizer
-step (train/state.py), the BN running statistics moved once by the forward,
-and the metrics (loss and the IoU histograms), which stay on the device.
-The model and its optimizer ride in the TrainState. Data parallelism (a
-mesh: DDP and SyncBN) waits for the parallel port and raises here.
+The body of pcf_tpu/parallel/mesh.py's make_train_step and make_eval_step:
+forward in train mode, loss, backward, clip and optimizer step
+(train/state.py), the BN running statistics moved once by the forward, and
+the metrics (loss and the IoU histograms), which stay on the device. The
+model and its optimizer ride in the TrainState.
+
+A mesh (make_mesh) is the port of pcf_tpu's 1-D "data" mesh: one process
+per device in a torch.distributed process group (NCCL on the card, gloo on
+the CPU), each holding a replica of the model and one packed batch, as a
+device of pcf_tpu's shard_map holds one slice of stack_batches' stack (so
+stack_batches has no counterpart here). Under a mesh the train step
+averages the gradients over the ranks (pcf_tpu's pmean, :104: one
+all_reduce over a flat buffer per dtype, inside the step, so that a CUDA
+graph captures it), averages the loss and sums the IoU histograms over
+them (:116-118, one all_reduce), draws dropout from the step's seed folded
+with the rank (fold_in(rng, axis_index), :128), and, with cfg.bn_axis_name
+set (trainer.build_mesh_and_cfg), sums every BatchNorm's masked statistics
+over the ranks (nn/norm.synced_batch_stats, SyncBN). The eval step runs no
+collective and returns the rank's own logits.
 
 On a CUDA model, make_train_step and make_eval_step run their step through
 parallel/graphs.StepGraphs: one CUDA graph per key, captured at the key's
@@ -22,24 +35,96 @@ also the steps that chip_smoke.py counts kernel launches in.
 
 from __future__ import annotations
 
-from typing import Callable
+import os
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pcf_torch.core.batching import PackedPyramid
 from pcf_torch.nn.layers import set_generator
+from pcf_torch.nn.norm import synced_batch_stats
 from pcf_torch.ops.kernels.derived import model_tensors, stamp, weights_written
+from pcf_torch.ops.kernels.window_scatter import shared_inverses
 from pcf_torch.parallel.graphs import StepGraphs
 from pcf_torch.train.loss import cross_entropy_loss
 from pcf_torch.train.metrics import intersection_and_union
 from pcf_torch.train.state import TrainState
 
 
-def check_single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a mesh (data-parallel training) is not ported to "
-                                  "pcf_torch yet; pass mesh=None")
+AXIS = "data"  # cfg.bn_axis_name under a mesh: pcf_tpu's mesh axis
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The port's data mesh: this process's rank of `size` in `group` (the
+    step's collectives), its device, and `control`, a gloo group over the
+    same ranks on the host (the loops agree there on whether every rank has
+    another batch, with no wait for the card)."""
+
+    group: Any
+    control: Any
+    size: int
+    rank: int
+    device: torch.device
+
+
+def make_mesh(n: int | None = None, device=None) -> Mesh:
+    """The mesh over the initialised default process group (pcf_tpu's
+    make_mesh over its devices): all of it, or `n` ranks, which must be all
+    of it. A group of one rank is a mesh too: its collectives run and
+    change nothing. `device`: this rank's device; default cuda:LOCAL_RANK
+    for an NCCL group, else the CPU."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs an initialised torch.distributed process "
+                           "group (torchrun, or init_process_group)")
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if n is not None and n != size:
+        raise ValueError(f"a mesh of {n} ranks asked for in a group of {size}")
+    backend = dist.get_backend()
+    if device is None:
+        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+                  if backend == "nccl" else torch.device("cpu"))
+    control = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
+    return Mesh(dist.group.WORLD, control, size, rank, torch.device(device))
+
+
+def all_have(mesh: Mesh | None, have: bool) -> bool:
+    """Whether every rank of the mesh has `have` (one host collective on the
+    control group; `have` itself without a mesh or with one rank)."""
+    if mesh is None or mesh.size == 1:
+        return have
+    flag = torch.tensor([int(have)], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.control)
+    return bool(flag.item())
+
+
+def _mean_grads(grads: list, mesh: Mesh) -> None:
+    """pcf_tpu's pmean of the gradients: summed over the ranks in one flat
+    buffer per dtype, then divided by the mesh's size, in place."""
+    by_dtype: dict = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=mesh.group)
+        flat.div_(mesh.size)
+        torch._foreach_copy_(same, [f.view_as(g) for f, g in
+                                    zip(flat.split([g.numel() for g in same]), same)])
+
+
+def _reduce_metrics(metrics: dict, mesh: Mesh) -> dict:
+    """pcf_tpu's metrics under a mesh: the loss averaged, the histograms
+    summed over the ranks, in one all_reduce."""
+    names = ("intersection", "union", "target")
+    flat = torch.cat([metrics["loss"].float().reshape(1)] + [metrics[k] for k in names])
+    dist.all_reduce(flat, group=mesh.group)
+    parts = flat.split([1] + [metrics[k].numel() for k in names])
+    out = {"loss": (parts[0][0] / mesh.size).to(metrics["loss"].dtype)}
+    out.update(zip(names, parts[1:]))
+    return out
 
 
 def step_seed(seed: int, index: int) -> int:
@@ -55,18 +140,22 @@ def _program_key(model) -> tuple:
             bool(cfg.get("fused_eval")), bool(cfg.get("flat_geom")))
 
 
-def _train_parts(cfg, class_weights):
+def _train_parts(cfg, class_weights, mesh=None):
     """(body, seeded): body(model, tx, batch, generator, steps) -> (metrics,
-    gradients) is the device work of one step; seeded(device, seed) is the
-    step function's one generator for `device`, seeded with `seed`."""
+    gradients) is the device work of one step, with the mesh's collectives;
+    seeded(device, seed) is the step function's one generator for `device`,
+    seeded with `seed` (folded with the rank under a mesh)."""
     num_classes = cfg.num_classes
     label_smoothing = float(cfg.label_smoothing or 0.0)
     ignore_label = cfg.ignore_label
     cw = None if class_weights is None else torch.as_tensor(class_weights,
                                                             dtype=torch.float32)
     per_device = {}
+    bn_group = mesh.group if mesh is not None and cfg.get("bn_axis_name") else None
 
     def seeded(device, seed):
+        if mesh is not None:
+            seed = step_seed(seed, mesh.rank)
         if device not in per_device:
             per_device[device] = (torch.Generator(device),
                                   None if cw is None else cw.to(device))
@@ -78,20 +167,27 @@ def _train_parts(cfg, class_weights):
         set_generator(model, generator)
         for p in model.parameters():
             p.grad = None
-        logits = model.forward_batch(batch)
-        loss, _ = cross_entropy_loss(
-            logits, batch.labels, mask=batch.masks[0],
-            class_weights=per_device[logits.device][1],
-            label_smoothing=label_smoothing, ignore_label=ignore_label)
-        loss.backward()
+        with synced_batch_stats(bn_group):
+            logits = model.forward_batch(batch)
+            loss, _ = cross_entropy_loss(
+                logits, batch.labels, mask=batch.masks[0],
+                class_weights=per_device[logits.device][1],
+                label_smoothing=label_smoothing, ignore_label=ignore_label)
+            with shared_inverses():  # kernel D inverts each edge set once
+                loss.backward()
+        if mesh is not None:
+            _mean_grads([p.grad for p in tx.params if p.grad is not None], mesh)
         tx.apply(steps)
         set_generator(model, None)
         with torch.no_grad():
             inter, union, target = intersection_and_union(
                 logits.argmax(-1), batch.labels, num_classes, ignore_label,
                 mask=batch.masks[0])
-        return ({"loss": loss.detach(), "intersection": inter, "union": union,
-                 "target": target}, [p.grad for p in tx.params])
+        metrics = {"loss": loss.detach(), "intersection": inter, "union": union,
+                   "target": target}
+        if mesh is not None:
+            metrics = _reduce_metrics(metrics, mesh)
+        return metrics, [p.grad for p in tx.params]
 
     return body, seeded
 
@@ -117,14 +213,14 @@ def _eager_train(body, seeded):
     return step
 
 
-def make_eager_train_step(cfg, mesh=None, class_weights=None
+def make_eager_train_step(cfg, mesh: Mesh | None = None, class_weights=None
                           ) -> Callable[[TrainState, PackedPyramid, int], tuple]:
     """step(state, batch, seed) -> (state, metrics): one optimizer step of
     state.model on `batch` (moved to the model's device), run op by op.
-    Dropout and DropPath draw from a generator seeded with `seed`.
-    Afterwards each parameter's .grad holds this step's raw gradient."""
-    check_single_device(mesh)
-    return _eager_train(*_train_parts(cfg, class_weights))
+    Dropout and DropPath draw from a generator seeded with `seed` (under a
+    mesh, step_seed(seed, rank)). Afterwards each parameter's .grad holds
+    this step's gradient (averaged over the mesh's ranks)."""
+    return _eager_train(*_train_parts(cfg, class_weights, mesh))
 
 
 def make_train_step(cfg, mesh=None, class_weights=None
@@ -133,9 +229,10 @@ def make_train_step(cfg, mesh=None, class_weights=None
     (see the module). A replay leaves each parameter's .grad holding this
     step's raw gradient in the graph's own tensor, which the next replay
     overwrites; the metrics handed back are copies. `step.graphs` is the
-    StepGraphs."""
-    check_single_device(mesh)
-    body, seeded = _train_parts(cfg, class_weights)
+    StepGraphs. Under a mesh the graph holds the step's collectives; its
+    first call, eager, is the communicator's first use, as NCCL needs
+    before a capture."""
+    body, seeded = _train_parts(cfg, class_weights, mesh)
     eager = _eager_train(body, seeded)
     graphs = StepGraphs()
 
@@ -162,11 +259,12 @@ def make_train_step(cfg, mesh=None, class_weights=None
     return step
 
 
-def make_eager_eval_step(cfg, mesh=None) -> Callable[[TrainState, PackedPyramid],
-                                                     torch.Tensor]:
+def make_eager_eval_step(cfg, mesh: Mesh | None = None
+                         ) -> Callable[[TrainState, PackedPyramid], torch.Tensor]:
     """eval_step(state, batch) -> logits, with the BN running statistics, run
-    op by op. `state` is a TrainState or the model itself."""
-    check_single_device(mesh)
+    op by op. `state` is a TrainState or the model itself. Under a mesh each
+    rank evaluates its own batch and gets its own logits: there is nothing
+    to reduce."""
 
     def eval_step(state, batch: PackedPyramid):
         model = getattr(state, "model", state)

@@ -2,11 +2,19 @@
 
 The same config surface and training semantics as pcf_tpu's trainer
 (weighted smoothed CE, schedules stepped per iteration, grad clip and
-accumulation, IoU metrics, checkpoints with resume and best tracking) on
-one device: the train and eval steps of parallel/mesh.py, which on the card
-are captured once per bucket signature as CUDA graphs and replayed. A mesh
-(cfg.data_parallel > 1, multi_host, spatial_train) is not ported yet and
-raises. Under cfg.post_knn or cfg.device_pyramid every batch is completed
+accumulation, IoU metrics, checkpoints with resume and best tracking): the
+train and eval steps of parallel/mesh.py, which on the card are captured
+once per bucket signature as CUDA graphs and replayed. Data-parallel
+training runs one process per device, started by torchrun (pcf_tpu's
+jax.distributed.initialize and its device mesh, :29-41, :206-211): with
+cfg.multi_host, cfg.data_parallel > 1 or a WORLD_SIZE above 1 in the
+environment, main joins the process group that torchrun's environment
+names (NCCL on cuda:LOCAL_RANK, gloo on the CPU), and with more than one
+rank trains on a mesh (build_mesh_and_cfg: SyncBN, pinned level caps,
+window overflow dropped), each rank on its own shard of the scenes; only
+rank 0 logs, snapshots the code and writes checkpoints. spatial_train (the
+point dimension sharded over the mesh) is not ported yet and raises. Under
+cfg.post_knn or cfg.device_pyramid every batch is completed
 on the device (data/post_knn.make_prepare, one CUDA graph per batch
 signature) before its step. Metrics stay on the device until a print
 boundary, as in pcf_tpu: reading a number back to the host waits for the
@@ -16,6 +24,7 @@ with torch.profiler.
 
 Usage: python -m pcf_torch.train.trainer --config pcf_tpu/configs/pcf_10cm.yaml
        [--set KEY=VALUE ...] [--device cpu]
+       torchrun --nproc_per_node=N -m pcf_torch.train.trainer --config ...
 """
 
 from __future__ import annotations
@@ -26,8 +35,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pcf_torch.parallel.mesh import check_single_device, step_seed
+from pcf_torch.parallel.mesh import AXIS, all_have, make_mesh, step_seed
 from pcf_torch.train.metrics import AverageMeter, intersection_and_union
 from pcf_torch.utils.logger import get_logger
 from pcf_torch.utils.memory import graph_pool_bytes, hbm_peak_gib, hbm_summary
@@ -55,6 +65,48 @@ def _group_batches(loader, group: int, map_fn=None, pad_tail: bool = False):
         n_real = len(buf)
         buf.extend(buf[-1:] * (group - n_real))
         yield buf, n_real
+
+
+def init_distributed(device_type: str) -> tuple[int, int, int]:
+    """Join the process group that torchrun's environment names (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on
+    cuda:LOCAL_RANK for a CUDA run, gloo on the CPU; pcf_tpu's
+    jax.distributed.initialize. One eager all_reduce follows, so that a
+    failed init raises here and the communicator is in use before any step
+    is captured. Returns (rank, world size, local rank)."""
+    env = os.environ
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in env]
+    if missing and not dist.is_initialized():
+        raise RuntimeError(f"data-parallel training needs torchrun's environment; "
+                           f"{', '.join(missing)} not set")
+    local = int(env.get("LOCAL_RANK", 0))
+    if not dist.is_initialized():
+        if device_type == "cuda":
+            torch.cuda.set_device(local)
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]))
+    probe = torch.zeros(1, device=torch.device("cuda", local) if device_type == "cuda"
+                        else "cpu")
+    dist.all_reduce(probe)
+    return dist.get_rank(), dist.get_world_size(), local
+
+
+def build_mesh_and_cfg(cfg, device=None):
+    """The data mesh (pcf_tpu's build_mesh_and_cfg): over cfg.data_parallel
+    ranks (default: the process group's size; 1 without one), or None for
+    one. Under a mesh the BatchNorm statistics are summed over the ranks
+    (cfg.bn_axis_name, cfg.sync_bn)."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    n = cfg.get("data_parallel") or world
+    if n != world:
+        raise ValueError(f"cfg.data_parallel = {n}, but the process group has {world} "
+                         f"rank(s): start one process per device with torchrun "
+                         f"--nproc_per_node={n}")
+    mesh = make_mesh(n, device) if n > 1 else None
+    if mesh is not None:
+        cfg.bn_axis_name = AXIS
+        cfg.sync_bn = True
+    return mesh
 
 
 def _post_knn_fn(cfg):
@@ -112,8 +164,10 @@ def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed,
     step_seed(rng_seed, epoch * 100000 + it), pcf_tpu's fold_in. In epoch
     cfg.profile_epoch (default 0), cfg.profile_dir gets a torch.profiler
     trace of steps 1 to cfg.profile_steps (default 5): the first step, which
-    builds and captures, is left out."""
-    check_single_device(mesh)
+    builds and captures, is left out. Under a mesh the ranks step together:
+    the epoch ends at the first step that some rank has no batch for (the
+    tail dropped, as pcf_tpu's grouping drops it), and the metrics, which
+    the step reduced over the ranks, are the same on every rank."""
     prepare = prepare or _post_knn_fn(cfg)
     if prepare is not None:
         device = next(state.model.parameters()).device
@@ -133,7 +187,11 @@ def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed,
     prof = None
     t0 = time.time()
     it = 0
-    for batch in loader:
+    batches = iter(loader)
+    while True:
+        batch = next(batches, None)
+        if not all_have(mesh, batch is not None):
+            break
         if profile_dir and it == 1:
             prof = _start_trace()
         if it == 0 and torch.cuda.is_available():
@@ -163,8 +221,11 @@ def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed,
 
 def validate(eval_step, state, loader, mesh, cfg, logger, prepare=None):
     """mIoU, mAcc and allAcc of eval_step's predictions over loader, each
-    batch through `prepare` as in train_one_epoch."""
-    check_single_device(mesh)
+    batch through `prepare` as in train_one_epoch. Under a mesh each rank
+    evaluates its own shard, with no collective per batch (the eval step
+    has none), and the histograms are summed over the ranks once at the
+    end, so a rank with fewer batches waits on no collective that the
+    others do not call."""
     prepare = prepare or _post_knn_fn(cfg)
     if prepare is not None:
         device = next(getattr(state, "model", state).parameters()).device
@@ -181,6 +242,10 @@ def validate(eval_step, state, loader, mesh, cfg, logger, prepare=None):
     for hists in pending:
         for i, h in enumerate(hists):
             sums[i] += h.cpu().numpy()
+    if mesh is not None:
+        total = torch.from_numpy(sums).to(mesh.device)
+        dist.all_reduce(total, group=mesh.group)
+        sums = total.cpu().numpy()
     miou, macc, allacc = _scores(*sums)
     logger.info(f"Val result: mIoU/mAcc/allAcc {miou:.4f}/{macc:.4f}/{allacc:.4f}")
     for c, v in enumerate(sums[0] / np.maximum(sums[1], 1)):
@@ -189,11 +254,17 @@ def validate(eval_step, state, loader, mesh, cfg, logger, prepare=None):
 
 
 def _check_ported(cfg):
-    if (cfg.get("data_parallel") or 1) > 1 or cfg.get("multi_host") \
-            or cfg.get("spatial_train"):
+    if cfg.get("spatial_train"):
         raise NotImplementedError(
-            "data parallelism (cfg.data_parallel > 1, multi_host, spatial_train) is "
-            "not ported to pcf_torch yet; the trainer runs on one device")
+            "spatial_train (the point dimension sharded over the mesh) is not ported "
+            "to pcf_torch yet")
+
+
+def _distributed(cfg) -> bool:
+    """Whether main joins a process group: multi_host, data_parallel > 1, or
+    a torchrun world of more than one rank."""
+    return bool(cfg.get("multi_host")) or (cfg.get("data_parallel") or 1) > 1 \
+        or int(os.environ.get("WORLD_SIZE", "1")) > 1
 
 
 def main(cfg, device=None):
@@ -202,7 +273,8 @@ def main(cfg, device=None):
     optimizer, a resume from <experiment_dir>/model when a checkpoint is
     there, then per epoch a training pass, validation every cfg.eval_freq
     epochs and a checkpoint every cfg.save_freq. The run goes to `device`,
-    "cuda" by default (raising without a card). Returns the final TrainState."""
+    "cuda" by default (raising without a card; cuda:LOCAL_RANK in a process
+    group). Returns the final TrainState."""
     from pcf_torch.data.scannet import getdataLoaders
     from pcf_torch.entry import build, resolve_device
     from pcf_torch.parallel.mesh import make_eval_step, make_train_step
@@ -213,19 +285,34 @@ def main(cfg, device=None):
 
     _check_ported(cfg)
     device = resolve_device(device)
+    rank, world = 0, 1
+    if _distributed(cfg):
+        rank, world, local = init_distributed(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", local)
+    mesh = build_mesh_and_cfg(cfg, device)
+    if mesh is not None:
+        # pinned level caps: every rank's batches have the same shapes, and
+        # the step is captured once; a window overflow drops the scene (a
+        # fall-back to plain edges would change the batch's structure)
+        cfg.setdefault("pin_level_caps", True)
+        if cfg.get("window_gather"):
+            cfg.setdefault("window_overflow", "drop")
     built = enable_compile_cache(device)
 
     exp_dir = cfg.get("experiment_dir", "./experiment")
     os.makedirs(exp_dir, exist_ok=True)
-    logger = get_logger(exp_dir)
+    logger = get_logger(exp_dir, distributed_rank=rank)
     logger.info(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + f"; rank {rank} of {world}"
                 + f"; host pyramid: {'native' if built['native'] else 'numpy/scipy'}; "
                 f"kernels: {built['kernels'] or 'none (plain versions on the CPU)'}")
-    snapshot_code(exp_dir, cfg.get("config"))
-    writer = MetricsWriter(exp_dir, cfg.get("use_tensorboard", False))
+    if rank == 0:
+        snapshot_code(exp_dir, cfg.get("config"))
+    writer = MetricsWriter(exp_dir, cfg.get("use_tensorboard", False)) if rank == 0 else None
     try:
-        train_loader, val_loader, _, _ = getdataLoaders(cfg)
+        train_loader, val_loader, _, _ = getdataLoaders(cfg, rank, world)
         logger.info(f"level caps {cfg.get('level_caps')}, window sizes "
                     f"{cfg.get('window_sizes')}")
 
@@ -233,6 +320,9 @@ def main(cfg, device=None):
         n_params = sum(p.numel() for p in model.parameters())
         logger.info(f"model parameters: {n_params / 1e6:.2f}M")
 
+        # this rank's shard: len(dataset) // world scenes in batches of
+        # BATCH_SIZE, pcf_tpu's len(train_loader) // mesh.size for the same
+        # data and device count
         iter_per_epoch = max(len(train_loader), 1)
         tx, schedule = make_optimizer(cfg, iter_per_epoch)
         state = create_train_state(model, tx)
@@ -253,8 +343,8 @@ def main(cfg, device=None):
             logger.info(f"resumed from epoch {init_epoch}")
 
         class_weights = cfg.get("weights") if cfg.USE_WEIGHT else None
-        step_fn = make_train_step(cfg, class_weights=class_weights)
-        eval_step = make_eval_step(cfg)
+        step_fn = make_train_step(cfg, mesh, class_weights=class_weights)
+        eval_step = make_eval_step(cfg, mesh)
         prepare = _post_knn_fn(cfg)  # one for the run: its graphs outlive epochs
 
         best_miou = 0.0
@@ -262,27 +352,31 @@ def main(cfg, device=None):
             train_loader.set_epoch(epoch)
             logger.info(f"lr: {float(schedule(state.tx.count)):.6f}")
             state, loss, miou, macc, allacc = train_one_epoch(
-                step_fn, state, train_loader, None, epoch, cfg, logger, cfg.manual_seed,
+                step_fn, state, train_loader, mesh, epoch, cfg, logger, cfg.manual_seed,
                 prepare=prepare)
             logger.info(f"Train epoch {epoch}: loss {loss:.4f} mIoU/mAcc/allAcc "
                         f"{miou:.4f}/{macc:.4f}/{allacc:.4f}")
-            writer.write(epoch, train_loss=loss, train_miou=miou, train_macc=macc,
-                         train_allacc=allacc, lr=float(schedule(state.tx.count)))
+            if writer is not None:
+                writer.write(epoch, train_loss=loss, train_miou=miou, train_macc=macc,
+                             train_allacc=allacc, lr=float(schedule(state.tx.count)))
 
             epoch_log = epoch + 1
             metrics = {}
             if epoch_log % cfg.eval_freq == 0:
-                vmiou, vmacc, vallacc = validate(eval_step, state, val_loader, None, cfg,
+                vmiou, vmacc, vallacc = validate(eval_step, state, val_loader, mesh, cfg,
                                                  logger, prepare=prepare)
                 metrics["miou"] = vmiou
                 best_miou = max(best_miou, vmiou)
                 logger.info(f"best val mIoU {best_miou:.4f}")
-                writer.write(epoch, val_miou=vmiou, val_macc=vmacc, val_allacc=vallacc)
-            if epoch_log % cfg.save_freq == 0:
+                if writer is not None:
+                    writer.write(epoch, val_miou=vmiou, val_macc=vmacc,
+                                 val_allacc=vallacc)
+            if epoch_log % cfg.save_freq == 0 and rank == 0:
                 ckpt.save(epoch_log, state, metrics)
                 logger.info(f"saved checkpoint at epoch {epoch_log}")
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state
 
 
@@ -296,4 +390,8 @@ if __name__ == "__main__":
     parser.add_argument("--device", default=None,
                         help="the device to train on (default: cuda)")
     args = parser.parse_args()
-    main(load_config(args.config, args.overrides), device=args.device)
+    try:
+        main(load_config(args.config, args.overrides), device=args.device)
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()

@@ -405,12 +405,12 @@ def test_fused_eval_folds_follow_a_train_step(small_model):
 
 
 def test_fused_eval_and_flat_geom_are_ported():
-    """Both keys build; the variants still to be ported raise."""
-    for key in ("fused_eval", "flat_geom"):
+    """fused_eval, flat_geom and cm_geom build; spatial_axis (spatial
+    sharding), still to be ported, raises."""
+    for key in ("fused_eval", "flat_geom", "cm_geom"):
         build(_model_cfg(Config, get_default_configs, **{key: True}), device="cpu")
-    for key in ("cm_geom", "spatial_axis"):
-        with pytest.raises(NotImplementedError, match=key):
-            build(_model_cfg(Config, get_default_configs, **{key: True}), device="cpu")
+    with pytest.raises(NotImplementedError, match="spatial_axis"):
+        build(_model_cfg(Config, get_default_configs, spatial_axis=True), device="cpu")
 
 
 def test_pcf_tpu_bf16_kernel_misreads_self_edges():

@@ -1,6 +1,8 @@
 """Host-side logic of the port's kernels that runs without a card: kernel E's
 packed weights (their layout and the cache that keeps them between calls),
-and kernel A's launch plan (route, lanes per edge, grid and shared memory).
+kernel A's launch plan (route, lanes per edge, grid and shared memory), and
+the workspaces that the wrappers of kernels B, C and D size on the host for
+the kernels' fixed-order sums.
 
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels_gpu.py)."""
@@ -10,7 +12,9 @@ import pytest
 import torch
 
 from pcf_torch.ops.kernels.layer_eval import packed_weights
+from pcf_torch.ops.kernels.pconv_fused import workspace_bytes
 from pcf_torch.ops.kernels.window_resolve import launch_plan, plan_for
+from pcf_torch.ops.kernels.window_scatter import piece_len, workspace_layout
 
 
 def _pairs(rng, dims):
@@ -163,3 +167,57 @@ def test_resolve_plan_covers_each_tile_within_the_shared_memory_limit(T, MtK):
     assert plan["smem"] == 4 * epb <= 16 * 1024 < 48 * 1024
     if MtK == 2048:
         assert plan["smem"] <= 8 * 1024
+
+
+@pytest.mark.parametrize("c_splits,M,O,want", [
+    (1, 40960, 160, 0),                       # one range: no workspace
+    (5, 512, 160, 4 * 5 * 512 * 160),         # B, PCFLayer C=80 at M=512, bf16
+    (2, 4096, 64, 4 * 2 * 4096 * 64),
+])
+def test_conv_linear_workspace_from_the_launch_shape(c_splits, M, O, want):
+    """Kernels B and C with split channel ranges: an f32 [M, O] slot per
+    range, which a second launch adds in range order; none without a
+    split."""
+    assert workspace_bytes(c_splits, M, O) == want
+
+
+def test_window_scatter_workspace_layout():
+    """Kernel D's workspaces at the padding-fan-in test's sizes (6,000 rows,
+    8192 x 16 edges, C = 64): pieces of 128 positions (4x the mean fan-in 21,
+    as a power of two), 64 sort tiles of 2048 edges, 2 radix passes of 8
+    bits (keys 0..6000), 1024 pieces. The inverse: keys, ids (twice each),
+    histograms, digit totals and row offsets; the reduction: the pieces'
+    head and tail slots; each section 16-byte aligned."""
+    lay = workspace_layout(6000, 8192 * 16, 64)
+    E = 8192 * 16
+    assert (lay["cap"], lay["tiles"], lay["passes"], lay["pieces"]) == (128, 64, 2, 1024)
+    assert [lay[k] for k in ("key0", "val0", "key1", "val1", "hist", "total", "offsets",
+                             "inverse_bytes")] == [
+        0, 4 * E, 8 * E, 12 * E, 16 * E, 16 * E + 4 * 256 * 64, 16 * E + 4 * 256 * 65,
+        16 * E + 4 * 256 * 65 + 24016]
+    assert [lay[k] for k in ("head", "tail", "reduce_bytes")] == [
+        0, 4 * 1024 * 64, 8 * 1024 * 64]
+
+
+@pytest.mark.parametrize("n_rows,edges,C", [(1, 0, 8), (70000, 5, 3), (40960, 40960 * 16, 32),
+                                            (188416, 3014656, 64), (65535, 1000, 16),
+                                            (65536, 1000, 16)])
+def test_window_scatter_workspace_covers_its_sections(n_rows, edges, C):
+    """Every section in order, 16-byte aligned, and as long as its contents;
+    the radix passes cover every key, 0..n_rows (n_rows: a dropped edge);
+    the piece length 32 to 256, a power of two, at least the mean fan-in."""
+    lay = workspace_layout(n_rows, edges, C)
+    for names, sizes in ((("key0", "val0", "key1", "val1", "hist", "total", "offsets",
+                           "inverse_bytes"),
+                          (4 * edges,) * 4 + (4 * 256 * lay["tiles"], 4 * 256,
+                                              4 * (n_rows + 1))),
+                         (("head", "tail", "reduce_bytes"), (4 * lay["pieces"] * C,) * 2)):
+        assert lay[names[0]] == 0
+        for a, b, size in zip(names, names[1:], sizes):
+            assert lay[a] % 16 == 0 and lay[b] >= lay[a] + size, (a, b)
+        assert lay[names[-1]] % 16 == 0
+    assert 2 ** (8 * lay["passes"]) > n_rows >= 2 ** (8 * (lay["passes"] - 1)) - 1
+    cap = piece_len(n_rows, edges)
+    assert cap == lay["cap"] and cap in (32, 64, 128, 256)
+    assert cap >= min(4 * (edges // n_rows), 256) or cap == 32
+    assert lay["tiles"] == -(-edges // 2048) and lay["pieces"] == -(-edges // cap)

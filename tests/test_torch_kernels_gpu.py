@@ -8,7 +8,9 @@ bit-exact; the fused kernels and the whole-layer kernel within 1e-4 in f32
 and 1e-2 of the output scale in bf16 (a partial rounded to bf16 after an f32
 sum in another order may move one bf16 step), the whole-layer kernel's
 max-pool shortcut exact; the window scatter within 1e-5 of the output's
-scale in f32 (its atomics sum in another order) and one bf16 step in bf16.
+scale in f32 (it sums in another order than the plain version) and one bf16
+step in bf16. B, C and D are deterministic: two launches on the same inputs
+give the same bits.
 """
 
 import os
@@ -17,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from pcf_torch.ops.kernels import window_scatter as scatter_mod
 from pcf_torch.ops.kernels.pconv_fused import (launch_shape, pconv_pe_conv_linear,
                                                pconv_pe_conv_linear_plain,
-                                               pcf_conv_linear, pcf_conv_linear_plain)
+                                               pcf_conv_linear, pcf_conv_linear_plain,
+                                               workspace_bytes)
 from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
                                               launch_shape as layer_eval_shape)
 from pcf_torch.ops.kernels.window_resolve import (window_resolve, window_resolve_flat,
@@ -128,6 +132,7 @@ def test_pcf_conv_linear(cuda, dtype, windowed, C, H, W, O):
     got = pcf_conv_linear(feats, edges, guid, v, lw, lb)
     assert pcf_conv_linear.launches == n + 1
     _check(got, pcf_conv_linear_plain(feats, edges, guid, v, lw, lb), dtype)
+    assert torch.equal(pcf_conv_linear(feats, edges, guid, v, lw, lb), got)  # same bits
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -158,17 +163,20 @@ def test_launch_tile_of_the_widest_guided_layer(cuda):
     blocks; rows 4096 + x 64*132*4 + S 64*136*2 + two L chunks 2*128*72*2.
     Kernel C takes B's tile over Ct = C + P channels: the flagship's
     PointConv (C=6, P=12, W=16, O=64) at M=40960 in f32, one O slice of 64,
-    640 blocks; rows 4096 + x 64*68*4 + S 64*64*4 + two L chunks 2*64*64*4."""
+    640 blocks; rows 4096 + x 64*68*4 + S 64*64*4 + two L chunks 2*64*64*4.
+    The split ranges' workspace: a 512 x 160 f32 slot per range,
+    4 * 5*512*160 bytes."""
     cores = "CUDA cores f32"
     assert launch_shape(80, 16, 16, 160, 40960, bf16=False) == dict(
         points=64, o_slices=1, o_per_slice=160, c_splits=1, blocks=640, smem=168960,
-        threads=256, contraction=cores, projection=cores)
+        threads=256, workspace=0, contraction=cores, projection=cores)
     assert launch_shape(80, 16, 16, 160, 512, bf16=True) == dict(
         points=64, o_slices=3, o_per_slice=56, c_splits=5, blocks=120, smem=92160,
-        threads=256, contraction=cores, projection="mma.sync m16n8k16 bf16")
+        threads=256, workspace=4 * 5 * 512 * 160, contraction=cores,
+        projection="mma.sync m16n8k16 bf16")
     assert launch_shape(6, 16, 16, 64, 40960, bf16=False, P=12) == dict(
         points=64, o_slices=1, o_per_slice=64, c_splits=1, blocks=640, smem=70656,
-        threads=256, contraction=cores, projection=cores)
+        threads=256, workspace=0, contraction=cores, projection=cores)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -217,6 +225,7 @@ def test_pcf_conv_linear_flagship_widths(cuda, C, O, Mb, windowed, dtype):
     got = pcf_conv_linear(feats, edges, guid, v, lw, lb)
     assert pcf_conv_linear.launches == n + 1
     _check(got, pcf_conv_linear_plain(feats, edges, guid, v, lw, lb), dtype)
+    assert torch.equal(pcf_conv_linear(feats, edges, guid, v, lw, lb), got)  # same bits
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -253,7 +262,7 @@ def test_pcf_conv_linear_bf16_weight_follows_updates(cuda):
 
 
 def _check_scatter(got, want, dtype):
-    """f32: the atomics' order only, within 1e-5 of the output's scale.
+    """f32: the order of the sums only, within 1e-5 of the output's scale.
     bf16: one bf16 step, 2^-8 to 2^-7 of the value, as the f32 sums before
     the one cast may round to neighbouring bf16 values."""
     scale = want.float().abs().max().item()
@@ -288,6 +297,7 @@ def test_window_scatter_matches_plain(cuda, dtype, C, win):
     assert window_scatter.launches == n + 1 and got.dtype == dtype
     want = window_scatter_plain(g, e.window_rows, e.localT, N, dtype)
     _check_scatter(got, want, dtype)
+    assert torch.equal(window_scatter(g, e.window_rows, e.localT, N, dtype), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -310,6 +320,41 @@ def test_window_scatter_padding_fan_in(cuda, dtype, C):
     assert window_scatter.launches == n + 1 and got.dtype == dtype
     _check_scatter(got, window_scatter_plain(g, e.window_rows, e.localT, n_rows, dtype),
                    dtype)
+    assert torch.equal(window_scatter(g, e.window_rows, e.localT, n_rows, dtype), got)
+
+
+@pytest.mark.parametrize("n_rows,edges,C", [(6000, 8192 * 16, 64), (40960, 40960 * 16, 32),
+                                            (70000, 5, 3), (1, 0, 8), (188416, 3_014_656, 64)])
+def test_workspace_layouts_agree_with_the_library(cuda, n_rows, edges, C):
+    """The wrappers size the workspaces on the host; the kernels' own layouts
+    take no more (B and C: every flagship PCFLayer width at both ends of the
+    point counts)."""
+    lay, lib = scatter_mod.workspace_layout(n_rows, edges, C), scatter_mod._lib()
+    assert lay["inverse_bytes"] == lib.window_scatter_inverse_bytes(n_rows, edges)
+    assert lay["reduce_bytes"] == lib.window_scatter_reduce_bytes(n_rows, edges, C)
+    assert lay["cap"] == lib.window_scatter_cap(n_rows, edges)
+    for (Cb, O), Mb, bf16 in [(co, m, b) for co in FLAGSHIP_B for m in (512, 40960)
+                              for b in (False, True)]:
+        sh = launch_shape(Cb, K, 16, O, Mb, bf16)
+        assert sh["workspace"] == workspace_bytes(sh["c_splits"], Mb, O)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_scatter_shares_the_inverse_of_an_edge_set(cuda, dtype):
+    """Inside shared_inverses, calls on one edge set invert it once and
+    reuse it (the train step's backward): every call's table equals the
+    unshared call's bit for bit, other widths and other edge sets too."""
+    e, e2 = _edges(cuda, 3), _edges(cuda, 5)
+    gs = [torch.randn(e.localT.shape[0], e.localT.shape[-1], C, device=cuda).to(dtype)
+          for C in (64, 64, 16)]
+    want = [window_scatter(g, e.window_rows, e.localT, N, dtype) for g in gs]
+    want2 = window_scatter(gs[0], e2.window_rows, e2.localT, N, dtype)
+    with scatter_mod.shared_inverses():
+        got = [window_scatter(g, e.window_rows, e.localT, N, dtype) for g in gs]
+        got2 = window_scatter(gs[0], e2.window_rows, e2.localT, N, dtype)
+        assert len(scatter_mod._SHARED) == 2
+    assert scatter_mod._SHARED is None
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(got2, want2)
 
 
 def test_window_scatter_bf16_sums_in_f32(cuda):
@@ -395,6 +440,7 @@ def test_pconv_pe_conv_linear_flagship_widths(cuda, C, P, W, O, Mb, windowed, dt
     got = pconv_pe_conv_linear(*args)
     assert pconv_pe_conv_linear.launches == n + 1
     _check(got, pconv_pe_conv_linear_plain(*args), dtype)
+    assert torch.equal(pconv_pe_conv_linear(*args), got)  # same bits
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -29,11 +29,15 @@ from test_torch_model import ATOL, GRID, RTOL, _args, _cfg
 
 # each off the flagship's value (tests/test_torch_model.py's _cfg and the
 # defaults): the keys pcf_tpu's configs set otherwise (use_level_1 and
-# mid_dim_back in pcf_2cm_ptf2.yaml, layer_norm_guidance in every YAML) and
-# the model's other switches
+# mid_dim_back in pcf_2cm_ptf2.yaml, layer_norm_guidance in every YAML), the
+# model's other switches, the PointTransformer and QK-attention ablations,
+# the channel-major stage geometry and the layer rematerialisation (which
+# changes no forward; tests/test_torch_variants.py holds its gradients)
 KEYS = [dict(use_level_1=False), dict(mid_dim_back=3), dict(layer_norm_guidance=True),
         dict(USE_VI=False), dict(USE_XYZ=False), dict(BATCH_NORM=False),
-        dict(guided_level=1), dict(USE_PALLAS_KERNEL=False)]
+        dict(guided_level=1), dict(USE_PALLAS_KERNEL=False),
+        dict(transformer_type="PointTransformer"), dict(attention_type="QK"),
+        dict(cm_geom=True), dict(remat_layers=True), dict(remat_deconv=True)]
 
 
 @pytest.fixture(scope="module")
@@ -46,11 +50,15 @@ def batches():
     c, n, f, l = j_scene(250, extent=4.0, num_classes=5, seed=3)
     jb = j_pack([j_item(c, n, f, l, GRID, 8, 8, 8, rng=np.random.default_rng(3),
                         morton=True)], bucket_multiple=128, **kw)
-    mp.undo()
     c, n, f, l = synthetic_scene(250, extent=4.0, num_classes=5, seed=3)
     tb = pack_scenes([scene_to_item(c, n, f, l, GRID, 8, 8, 8,
                                     rng=np.random.default_rng(3), morton=True)],
                      bucket_multiple=128, **kw)
+    mp.undo()
+    # both pyramids from the numpy path: the native kNN orders distance ties
+    # otherwise, and PointTransformerLayer reads the first neighbour
+    for a, b in zip(jb.edges_forward, tb.edges_forward):
+        np.testing.assert_array_equal(np.asarray(a.nei), b.nei.numpy())
     return jb, tb
 
 

@@ -255,10 +255,13 @@ def test_dropout_draws_from_the_step_generator(batch):
         state.model.forward_batch(tb)
 
 
-def test_unported_remat_options_raise():
+def test_remat_options_build_and_train(batch):
+    """remat_layers and remat_deconv (models/backbone.maybe_remat) build and
+    take a train step; tests/test_torch_variants.py holds their gradients."""
     for key in ("remat_layers", "remat_deconv"):
-        with pytest.raises(NotImplementedError, match=key):
-            build(_tcfg(**{key: True}), device="cpu")
+        state, step = build_training(_tcfg(**{key: True}), device="cpu")
+        state, metrics = step(state, batch, 0)
+        assert torch.isfinite(metrics["loss"]) and state.step == 1, key
 
 
 # ---- checkpoints and loops -------------------------------------------------
@@ -312,8 +315,16 @@ def test_train_one_epoch_defers_and_flushes_metrics():
         fake_step, None, [object()] * 5, None, 2, cfg, logging.getLogger("t"), 9)
     assert loss == pytest.approx(3.0) and miou == allacc == pytest.approx(1.0)
     assert seeds == [step_seed(9, 200000 + i) for i in range(5)]
-    with pytest.raises(NotImplementedError):
-        train_one_epoch(fake_step, None, [], object(), 0, cfg, logging.getLogger("t"), 0)
+    # under a mesh of one rank the loop runs the same steps (the ranks'
+    # agreement on another batch is this rank's own)
+    from pcf_torch.parallel.mesh import Mesh
+
+    seeds.clear()
+    mesh = Mesh(group=None, control=None, size=1, rank=0, device=torch.device("cpu"))
+    _, loss, miou, _, _ = train_one_epoch(fake_step, None, [object()] * 3, mesh, 0, cfg,
+                                          logging.getLogger("t"), 9)
+    assert loss == pytest.approx(2.0) and miou == pytest.approx(1.0)
+    assert seeds == [step_seed(9, i) for i in range(3)]
 
 
 def test_validate_and_eval_step(batch):

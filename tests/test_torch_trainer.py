@@ -124,12 +124,79 @@ def test_profile_dir_traces_only_profile_epoch(scene_dir, tmp_path):
     assert trace["traceEvents"]
 
 
-@pytest.mark.parametrize("key,value", [("data_parallel", 2), ("multi_host", True),
-                                       ("spatial_train", True)])
+@pytest.mark.parametrize("key,value", [("spatial_train", True)])
 def test_unported_modes_raise(scene_dir, tmp_path, key, value):
     cfg = _cfg(t_config, scene_dir, experiment_dir=str(tmp_path / "exp"), **{key: value})
     with pytest.raises(NotImplementedError):
         trainer.main(cfg, device="cpu")
+    assert not (tmp_path / "exp").exists()
+
+
+def _rank_outputs(exp):
+    return sorted(p.name for p in exp.iterdir())
+
+
+@pytest.mark.parametrize("key,value", [("data_parallel", 2), ("multi_host", True)])
+def test_parallel_modes_run(scene_dir, tmp_path, monkeypatch, key, value):
+    """data_parallel 2: main on two gloo ranks (tests/torch_dist_worker.py),
+    each on its shard of the scenes (BATCH_SIZE 1: 2 and 1 train scenes, so
+    the ranks stop together after one step), SyncBN over a mesh; both end
+    with the same parameters and BN statistics, only rank 0 logs, writes
+    metrics and checkpoints, and a second run resumes from its checkpoint.
+    multi_host: one rank of a torchrun-style group of one, in this process
+    (the bootstrap, no mesh), which trains and checkpoints as main does."""
+    from torch_dist_worker import free_port, spawn
+
+    exp = tmp_path / "exp"
+    cfg = _cfg(t_config, scene_dir, experiment_dir=str(exp), BATCH_SIZE=1, **{key: value})
+    if key == "data_parallel":
+        a, b = spawn("main", 2, dict(cfg=cfg, resume_epochs=2), tmp_path, timeout=300)
+        assert a["steps"] == b["steps"] == 1 and a["resumed_steps"] == b["resumed_steps"] == 2
+        for k in a["state"]:
+            assert torch.equal(a["state"][k], b["state"][k]), k
+            assert torch.equal(a["resumed_state"][k], b["resumed_state"][k]), k
+        assert _rank_outputs(exp) == ["code_log", "log.txt", "metrics.jsonl", "model"]
+        log = (exp / "log.txt").read_text()
+        assert "rank 0 of 2" in log and "rank 1 of 2" not in log
+        assert "resumed from epoch 1" in log
+        assert len((exp / "metrics.jsonl").read_text().splitlines()) == 4
+        params, stats, epoch = CheckpointManager(str(exp / "model")).restore_eval()
+        assert epoch == 2
+        for k, v in a["resumed_state"].items():
+            assert torch.equal(v, {**params, **stats}[k]), k
+        return
+    import torch.distributed as dist
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    try:
+        state = trainer.main(cfg, device="cpu")
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert state.step == 3 and not cfg.get("sync_bn")
+    assert "rank 0 of 1" in (exp / "log.txt").read_text()
+    assert sorted(p.name for p in (exp / "model").iterdir()) == ["1.pt", "metrics.json"]
+
+
+def test_data_parallel_must_match_the_group(scene_dir, tmp_path, monkeypatch):
+    """cfg.data_parallel that differs from the process group's size raises
+    before anything is written (pcf_tpu's mesh takes that many devices)."""
+    import torch.distributed as dist
+    from torch_dist_worker import free_port
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    cfg = _cfg(t_config, scene_dir, experiment_dir=str(tmp_path / "exp"), data_parallel=3)
+    try:
+        with pytest.raises(ValueError, match="data_parallel = 3"):
+            trainer.main(cfg, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     assert not (tmp_path / "exp").exists()
 
 

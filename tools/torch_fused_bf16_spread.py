@@ -18,7 +18,11 @@ whole-layer evaluation:
 Phase 13's gates are logged here, not asserted. Needs one card and the
 kernels' toolchain, as chip_smoke.py does.
 
-Usage (from the repository root): python3 tools/torch_fused_bf16_spread.py [runs]
+Run i trains from the weights of cfg.manual_seed = seed0 + i (seed0 1 by
+default, phase 13's own seed); each scene's line names its run's seed.
+
+Usage (from the repository root):
+python3 tools/torch_fused_bf16_spread.py [runs] [seed0]
 """
 
 from __future__ import annotations
@@ -97,6 +101,16 @@ def main() -> int:
     from pcf_torch.ops.kernels.window_scatter import window_scatter
 
     runs = int(sys.argv[1]) if len(sys.argv) > 1 else 3
+    seed0 = int(sys.argv[2]) if len(sys.argv) > 2 else 1
+    seed = {"now": seed0}
+    config = cs.phase13_config
+
+    def seeded_config(*a, **kw):
+        cfg = config(*a, **kw)
+        cfg.manual_seed = seed["now"]
+        return cfg
+
+    cs.phase13_config = seeded_config
     versions = {"port": fused_layer_eval_plain, "pcf_tpu": pcf_tpu_rounding}
     ratios = {k: [] for k in ("kernel", *versions)}
     last = {}
@@ -136,7 +150,7 @@ def main() -> int:
         else:
             for k in ratios:
                 ratios[k].append(pending[k] / v)
-            cs.log("[spread] scene: RMS ratio " + ", ".join(
+            cs.log(f"[spread] seed {seed['now']} scene: RMS ratio " + ", ".join(
                 f"{k} {ratios[k][-1]:.3f}" for k in ratios) + f" (standard bf16 RMS {v:.4e})")
             pending.clear()
         return v
@@ -160,12 +174,13 @@ def main() -> int:
                     pconv_pe_conv_linear=pconv_pe_conv_linear, window_scatter=window_scatter,
                     window_resolve_flat=window_resolve_flat, fused_layer_eval=fused_layer_eval)
     for i in range(runs):
+        seed["now"] = seed0 + i
         t = time.time()
         try:
             cs.entry_phase(wrappers, smi)
         except AssertionError as e:
             cs.log(f"[spread] run {i}: a gate failed: {e}")
-        cs.log(f"[spread] run {i}: {time.time() - t:.1f} s")
+        cs.log(f"[spread] run {i} (seed {seed['now']}): {time.time() - t:.1f} s")
         torch.cuda.empty_cache()
     for k, v in ratios.items():
         cs.log(f"[spread] {k}: {len(v)} scenes, RMS ratio {min(v):.3f}-{max(v):.3f}, above "
