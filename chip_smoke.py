@@ -200,6 +200,25 @@ Phases (any failure exits non-zero, before the last line is printed):
              step's peak memory. PointConvFormer_Classification at the same
              width over the batch's two scenes as clouds: logits on the card
              against the CPU, two Adam train steps with finite losses.
+ 18 spatial  spatial sharding (parallel/spatial.py) on phase 3's batch with
+             its windows unwrapped to plain edges, f32 and bf16: (a) on a
+             mesh of one NCCL rank, the captured spatial eval step (launch
+             counts from 0 over its first call: B and C, never A, D or E)
+             against the unsharded forward on the same plain-edge batch,
+             equal bit for bit or within GRAPH_REL; the captured spatial
+             train step (SGD, every ReLU and max smooth) against mesh=None
+             on it, first call and replay (spatial_held: f32 at phase 12's
+             tolerances, bf16 by phase 8's witness against an f32 step),
+             every eager B and C call of its first call against its plain
+             version, its collectives and their bytes; the flagship step
+             (AdamW) spatial, unsharded on plain edges and windowed, replays
+             in turns, each first call's peak memory and graph pool, and the
+             eval replays likewise; (b) the eager spatial eval and f32 train
+             steps on SPATIAL_RANKS gloo ranks on cuda:0, each a process of
+             this script (--spatial-rank), against (a)'s unsharded results;
+             (c) trainer.main under spatial_train in a torchrun-style group
+             of one NCCL rank on MESH_ROOMS rooms: 2 steps, B and C launched,
+             A, D and E never, its checkpoint equal to its state.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -2444,24 +2463,49 @@ def free_port() -> int:
 
 
 class CollectiveCounter:
-    """Counts torch.distributed.all_reduce calls and their bytes while on
-    (the port's mesh and SyncBN call it through the module attribute)."""
+    """Counts the torch.distributed collectives the port calls (all_reduce;
+    all_gather_into_tensor and reduce_scatter_tensor, spatial sharding's),
+    and their output bytes, outside CUDA graph captures, while on (the
+    port's mesh, SyncBN and nn/sharded.py call them through the module
+    attributes). `calls` and `bytes` are all_reduce's."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
 
     def __init__(self):
         import torch.distributed as dist
 
-        self.dist, self.fn = dist, dist.all_reduce
-        self.calls = self.bytes = 0
+        self.dist = dist
+        self.fns = {n: getattr(dist, n) for n in self.NAMES}
+        self.counts = {n: [0, 0] for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(dist, n, self._counted(n))
+
+    def _counted(self, name):
+        fn = self.fns[name]
 
         def counted(t, *a, **kw):
-            self.calls += 1
-            self.bytes += t.numel() * t.element_size()
-            return self.fn(t, *a, **kw)
+            if not torch.cuda.is_current_stream_capturing():
+                self.counts[name][0] += 1
+                self.counts[name][1] += t.numel() * t.element_size()
+            return fn(t, *a, **kw)
 
-        dist.all_reduce = counted
+        return counted
+
+    @property
+    def calls(self) -> int:
+        return self.counts["all_reduce"][0]
+
+    @property
+    def bytes(self) -> int:
+        return self.counts["all_reduce"][1]
+
+    def summary(self) -> str:
+        return ", ".join(f"{n} {c} calls ({b / 2**20:.2f} MiB)"
+                         for n, (c, b) in self.counts.items())
 
     def restore(self):
-        self.dist.all_reduce = self.fn
+        for n, fn in self.fns.items():
+            setattr(self.dist, n, fn)
 
 
 def state_bits_equal(label, a, ma, b, mb):
@@ -2759,6 +2803,373 @@ def variants_phase(wrappers, smi, device="cuda"):
         f"losses {[round(v, 5) for v in losses]}")
 
 
+# phase 18: the spatial steps on ranks of a gloo group on the one card
+# (NCCL refuses two ranks on one card), each a process of this script
+SPATIAL_RANKS = 2
+SPATIAL_SEED = 5
+
+
+def spatial_rank(argv) -> int:
+    """`chip_smoke.py --spatial-rank RANK WORLD PORT DIR [DEVICE]`: one rank of
+    phase 18's gloo group on DEVICE (cuda:0). It loads DIR/inputs.pt (the configurations,
+    the weights, the batch), runs the eager spatial eval step in both dtypes
+    and one f32 train step (every ReLU and max smooth), and saves what they
+    gave to DIR/rank<RANK>.pt."""
+    import torch.distributed as dist
+
+    from pcf_torch.entry import build, build_training
+    from pcf_torch.parallel.mesh import make_mesh
+    from pcf_torch.parallel.spatial import make_spatial_eval_step, make_spatial_train_step
+
+    rank, world, port, root = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    device = torch.device(argv[4] if len(argv) > 4 else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    mesh = make_mesh(world, device)
+    p = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+    batch = p["batch"].to(device)
+    out = {"logits": {}}
+    for dtype_name, (cfg_d, weights) in p["evals"].items():
+        model = build(cfg_d, device=device, seed=0)
+        model.load_state_dict(weights)
+        out["logits"][dtype_name] = make_spatial_eval_step(cfg_d, mesh)(model, batch).cpu()
+    cfg_t = p["train_cfg"]
+    state, _ = build_training(cfg_t, device=device, seed=0)
+    with smooth_kinks():
+        _, m = make_spatial_train_step(cfg_t, mesh)(state, batch, SPATIAL_SEED)
+    torch.cuda.synchronize()
+    out["metrics"] = {k: v.cpu() for k, v in m.items()}
+    out["grads"] = {k: q.grad.cpu().double() for k, q in state.model.named_parameters()}
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def spatial_ranks(root, world, timeout=300.0, device="cuda:0") -> list:
+    """Run spatial_rank on `world` ranks of this script; their results."""
+    port = str(free_port())
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spatial-rank",
+                               str(r), str(world), port, root, device], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            text = open(os.path.join(root, f"rank{r}.log")).read()
+            raise RuntimeError(f"[spatial] gloo rank {r} of {world} on the card exited with "
+                               f"{p.returncode}:\n{text[-4000:]}")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def spatial_held(label, a, ma, b, mb, f32_grads=None):
+    """Phase 18: a spatial train step's state and metrics against the
+    unsharded step's (see spatial_phase), logged, then asserted. f32: the
+    loss within GRAPH_LOSS_RTOL, the histograms equal, every gradient and BN
+    statistic within phase 8's tolerance. bf16 (`f32_grads`, the f32
+    unsharded step's gradients on the same weights): a one-step difference of
+    a bf16 gradient sum moves others by more than that tolerance, so, as
+    phase 8 holds the card to float64, the spatial step's gradient tree no
+    farther from the f32 one than TRAIN_WITNESS times the unsharded step's;
+    the loss within BF16_REL."""
+    loss, want = ma["loss"].item(), mb["loss"].item()
+    rel = abs(loss - want) / abs(want)
+    got = {k: p.grad.detach().double() for k, p in a.model.named_parameters()}
+    ref = {k: p.grad.detach().double() for k, p in b.model.named_parameters()}
+    over, worst, key = grad_ratios(got, ref)
+    stats = dict(a.model.named_buffers())
+    ref_stats = {k: v for k, v in b.model.named_buffers() if k.endswith(("mean", "var"))}
+    s_over, s_worst, s_key = grad_ratios({k: stats[k] for k in ref_stats}, ref_stats)
+    same = sum(torch.equal(got[k], ref[k]) for k in ref)
+    hists = all(torch.equal(ma[k], mb[k]) for k in ("intersection", "union", "target"))
+    text = (f"{label}: loss {loss:.7f} against {want:.7f} (rel {rel:.2e}, equal bit for bit: "
+            f"{loss == want}), histograms equal: {hists}; {same} of {len(ref)} gradients equal "
+            f"bit for bit, the worst at {worst:.3f} of phase 8's tolerance ({key}), tree error "
+            f"{tree_error(got, ref):.3e}; BN statistics worst at {s_worst:.3f} of it ({s_key})")
+    if f32_grads is None:
+        log(text)
+        assert rel <= GRAPH_LOSS_RTOL, f"{label}: the loss differs by {rel:.3e}"
+        assert hists, f"{label}: the histograms differ"
+        assert over == 0, f"{label}: {over} gradients beyond tolerance ({key})"
+        assert s_over == 0, f"{label}: BN statistic {s_key} beyond tolerance"
+        return
+    e_sp, e_un = tree_error(got, f32_grads), tree_error(ref, f32_grads)
+    log(f"{text}; gradient tree error against the f32 step: spatial {e_sp:.3e}, unsharded "
+        f"{e_un:.3e} (ratio {e_sp / e_un:.3f}, witness {TRAIN_WITNESS})")
+    assert rel <= BF16_REL, f"{label}: the loss differs by {rel:.3e}"
+    assert torch.equal(ma["target"], mb["target"]), f"{label}: the target histogram differs"
+    assert e_sp <= TRAIN_WITNESS * e_un, f"{label}: gradient error {e_sp:.3e} against {e_un:.3e}"
+
+
+def spatial_phase(cfg, batch, wrappers, smi):
+    """Phase 18: spatial sharding on the card (see the module docstring)."""
+    import torch.distributed as dist
+
+    import pcf_torch.nn.fused as fused_mod
+    from pcf_torch.entry import build, build_training
+    from pcf_torch.parallel import mesh as mesh_mod
+    from pcf_torch.parallel import spatial
+    from pcf_torch.train import trainer
+    from pcf_torch.train.checkpoint import CheckpointManager
+
+    def launched():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    plain = spatial._unwrap_windows(batch)
+    valid = int(batch.masks[0].sum())
+    root = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    ref = {"evals": {}, "batch": batch.to("cpu")}
+    want_logits = {}
+    try:
+        mesh = mesh_mod.make_mesh()
+        for dtype_name in ("float32", "bfloat16"):
+            cfg_s = cfg.copy()
+            cfg_s.compute_dtype = dtype_name
+            label = f"[spatial] {dtype_name}"
+            # (a) eval: the captured spatial step on a 1-rank NCCL mesh against
+            # the unsharded forward on the same plain-edge batch
+            model = build(cfg_s, device="cuda", seed=0)
+            with torch.no_grad():
+                model.train()
+                model.forward_batch(batch)  # BN calibration, as phase 3
+                model.eval()
+            ref["evals"][dtype_name] = (cfg_s, {k: v.cpu() for k, v in
+                                                model.state_dict().items()})
+            eager = mesh_mod.make_eager_eval_step(cfg_s)
+            want, again = eager(model, plain), eager(model, plain)
+            want_logits[dtype_name] = want.cpu()
+            ev = spatial.make_spatial_eval_step(cfg_s, mesh)
+            for fn in wrappers.values():
+                fn.launches = 0
+            got = ev(model, batch)
+            torch.cuda.synchronize()
+            counts = launched()
+            rep = ev(model, batch)
+            assert ev.graphs.captures == 1 and ev.graphs.replays == 1, (
+                ev.graphs.captures, ev.graphs.replays)
+            for k in ("pcf_conv_linear", "pconv_pe_conv_linear"):
+                assert counts[k] > 0, f"{label}: {k} was not launched by the spatial eval step"
+            for k in ("window_resolve", "window_scatter", "fused_layer_eval"):
+                assert counts.get(k, 0) == 0, f"{label}: {k} launched on plain edges"
+            scale = want.float().abs().max().item()
+            for what, out in (("first call", got), ("replay", rep)):
+                d = max_diff(out, want)
+                log(f"{label}: spatial eval step ({what}) against the unsharded forward on "
+                    f"plain edges: equal bit for bit: {torch.equal(out, want)}; max abs err "
+                    f"{d:.3e}, eager against eager {max_diff(again, want):.3e} (logit scale "
+                    f"{scale:.3e})")
+                assert out.shape == want.shape, (out.shape, want.shape)
+                assert d <= GRAPH_REL[dtype_name] * scale, f"{label}: eval {what} differs by {d:.3e}"
+            log(f"{label}: spatial eval step launches (eager run and capture) {counts}")
+
+            # (a) train: the captured spatial step against the unsharded
+            # mesh=None step on the plain-edge batch. Their forwards are the
+            # same bit for bit, but a gathered table's gradient reaches it
+            # through one more autograd node (the all-gather's reduce-scatter)
+            # and its parts are summed in another order. So, as phase 12
+            # holds captured steps to eager ones: SGD, every ReLU and max
+            # smooth, at spatial_held's tolerances (bf16 against an f32 step)
+            cfg_t = cfg_s.copy()
+            cfg_t.optimizer = "SGD"
+            f32_grads = [None, None]
+            if dtype_name == "bfloat16":
+                cfg_f = cfg_t.copy()
+                cfg_f.compute_dtype = "float32"
+                state_f, _ = build_training(cfg_f, device="cuda", seed=0)
+                eager_f = mesh_mod.make_eager_train_step(cfg_f)
+                for i in range(2):
+                    with smooth_kinks():
+                        eager_f(state_f, plain, mesh_mod.step_seed(SPATIAL_SEED + i, 0))
+                    f32_grads[i] = {k: q.grad.detach().double()
+                                    for k, q in state_f.model.named_parameters()}
+                del state_f, eager_f
+            (sa, _), (sb, _) = (build_training(cfg_t.copy(), device="cuda", seed=0),
+                                build_training(cfg_t.copy(), device="cuda", seed=0))
+            step_sp = spatial.make_spatial_train_step(cfg_t, mesh)
+            step_un = mesh_mod.make_train_step(cfg_t)
+            recs = [EagerRecorder(fused_mod, "pcf_conv_linear"),
+                    EagerRecorder(fused_mod, "pconv_pe_conv_linear")]
+            for fn in wrappers.values():
+                fn.launches = 0
+            coll = CollectiveCounter()
+            try:
+                with smooth_kinks():
+                    _, ma = step_sp(sa, batch, SPATIAL_SEED)
+                    torch.cuda.synchronize()
+            finally:
+                coll.restore()
+                for r in recs:
+                    r.restore()
+            counts = launched()
+            for r in recs:
+                # the first call runs the body eagerly, then captures it
+                assert 2 * len(r.calls) == counts[r.name], (r.name, len(r.calls),
+                                                            counts[r.name])
+            for k in ("window_resolve", "window_scatter"):
+                assert counts[k] == 0, f"{label}: {k} launched on plain edges"
+            held = replay_against_plain(recs)
+            with smooth_kinks():
+                _, mb = step_un(sb, plain, mesh_mod.step_seed(SPATIAL_SEED, 0))
+            spatial_held(f"{label} train first call", sa, ma, sb, mb, f32_grads[0])
+            for fn in wrappers.values():
+                fn.launches = 0
+            with smooth_kinks():
+                _, ma = step_sp(sa, batch, SPATIAL_SEED + 1)
+                _, mb = step_un(sb, plain, mesh_mod.step_seed(SPATIAL_SEED + 1, 0))
+            assert all(n == 0 for n in launched().values()), launched()
+            spatial_held(f"{label} train replay", sa, ma, sb, mb, f32_grads[1])
+            assert step_sp.graphs.captures == 1 and step_sp.graphs.replays == 1
+            log(f"{label}: captured spatial train step (SGD, smooth) on a 1-rank NCCL mesh, "
+                f"held to mesh=None on the plain-edge batch (first call and replay); eager "
+                f"launches { {r.name: len(r.calls) for r in recs} } (as many captured), each "
+                f"eager B and C call against its plain version: "
+                f"{ {k: v for k, v in held.items() if v[0]} } (calls, max abs err); "
+                f"{coll.summary()} a step")
+            del sa, sb, step_sp, step_un, recs
+            gc.collect()
+
+            # the flagship step (AdamW, real kinks), the replays in turns:
+            # spatial, unsharded on plain edges, windowed; each first call's
+            # peak memory (its eager run and capture)
+            states = {k: build_training(cfg_s.copy(), device="cuda", seed=0)[0]
+                      for k in ("spatial", "plain", "windowed")}
+            steps = {"spatial": spatial.make_spatial_train_step(cfg_s, mesh),
+                     "plain": mesh_mod.make_train_step(cfg_s),
+                     "windowed": mesh_mod.make_train_step(cfg_s)}
+            feeds = {"spatial": batch, "plain": plain, "windowed": batch}
+            peaks = {}
+            for k, fn in steps.items():
+                torch.cuda.synchronize()
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                fn(states[k], feeds[k], 0)
+                torch.cuda.synchronize()
+                peaks[k] = (torch.cuda.max_memory_allocated() - resident) / 2**20
+            seeds = iter(range(100, 10 ** 6))
+            times = timed_in_turns({k: functools.partial(
+                lambda k: steps[k](states[k], feeds[k], next(seeds)), k) for k in steps},
+                STEP_WARMUP, STEP_REPS)
+            pools = {k: round(fn.graphs.pool_bytes() / 2**20, 1) for k, fn in steps.items()}
+            ev_un, ev_win = mesh_mod.make_eval_step(cfg_s), mesh_mod.make_eval_step(cfg_s)
+            ev_un(model, plain)
+            ev_win(model, batch)
+            etimes = timed_in_turns({"spatial": lambda: ev(model, batch),
+                                     "plain": lambda: ev_un(model, plain),
+                                     "windowed": lambda: ev_win(model, batch)},
+                                    FWD_WARMUP, FWD_REPS)
+            log(f"{label}: train replay ms (AdamW), {STEP_REPS} after {STEP_WARMUP} warm-up "
+                f"in turns: {turns_summary(times, valid)}; first call's peak MiB above "
+                f"resident { {k: round(v, 1) for k, v in peaks.items()} }; graph pools MiB "
+                f"{pools}; eval replay ms, {FWD_REPS} after {FWD_WARMUP} in turns: "
+                f"{turns_summary(etimes, valid)} ({smi})")
+            del states, steps, ev, ev_un, ev_win, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the 2-rank train step's reference: the unsharded f32 step, smooth
+        cfg_t = cfg.copy()
+        cfg_t.compute_dtype = "float32"
+        state, _ = build_training(cfg_t, device="cuda", seed=0)
+        with smooth_kinks():
+            _, m_ref = mesh_mod.make_eager_train_step(cfg_t)(
+                state, plain, mesh_mod.step_seed(SPATIAL_SEED, 0))
+        grads_ref = {k: q.grad.cpu().double() for k, q in state.model.named_parameters()}
+        ref["train_cfg"] = cfg_t
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two gloo ranks on the one card, each a process: the eager steps
+    t0 = time.perf_counter()
+    torch.save(ref, os.path.join(root, "inputs.pt"))
+    ranks = spatial_ranks(root, SPATIAL_RANKS)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        for dtype_name, want in want_logits.items():
+            got = out["logits"][dtype_name]
+            scale = want.float().abs().max().item()
+            d = max_diff(got, want)
+            assert d <= GRAPH_REL[dtype_name] * scale, (
+                f"[spatial] gloo rank {r} {dtype_name}: eval differs by {d:.3e}")
+            log(f"[spatial] gloo rank {r} of {SPATIAL_RANKS} {dtype_name}: eval logits against "
+                f"the unsharded forward max abs err {d:.3e} (logit scale {scale:.3e})")
+        loss, want_loss = float(out["metrics"]["loss"]), float(m_ref["loss"])
+        assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), (loss, want_loss)
+        assert torch.equal(out["metrics"]["target"], m_ref["target"].cpu())
+        over, worst, key = grad_ratios(out["grads"], grads_ref)
+        assert over == 0, f"[spatial] gloo rank {r}: {over} gradients beyond tolerance ({key})"
+        log(f"[spatial] gloo rank {r} of {SPATIAL_RANKS} float32 train step (smooth): loss "
+            f"{loss:.6f} against {want_loss:.6f}, every gradient within tolerance (worst "
+            f"{worst:.3f} of it, {key}), tree error {tree_error(out['grads'], grads_ref):.3e}")
+    log(f"[spatial] {SPATIAL_RANKS} gloo ranks on cuda:0: {wall:.1f} s, start to end")
+
+    # (c) trainer.main under spatial_train in a torchrun-style group of one
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+        subprocess.run([sys.executable, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools", "make_synth_dataset.py"),
+            "--out", data, "--train", str(MESH_ROOMS[0]), "--val", str(MESH_ROOMS[1]),
+            "--points", str(ENTRY_ROOM_POINTS)], check=True, capture_output=True)
+        cfg_h = phase13_config(data, exp)
+        cfg_h.update(multi_host=True, spatial_train=True)
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.main(cfg_h)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launched()
+        for k in ("pcf_conv_linear", "pconv_pe_conv_linear"):
+            assert counts[k] > 0, f"[spatial] main: {k} was not launched"
+        for k in ("window_resolve", "window_scatter", "fused_layer_eval"):
+            assert counts.get(k, 0) == 0, f"[spatial] main: {k} launched on unwrapped edges"
+        logtext = open(os.path.join(exp, "log.txt")).read()
+        assert "rank 0 of 1" in logtext, "main did not join the group"
+        lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
+        losses = [r["train_loss"] for r in lines if "train_loss" in r]
+        assert losses and all(math.isfinite(v) for v in losses), lines
+        assert state.step == 2, state.step
+        params, stats, epoch = CheckpointManager(os.path.join(exp, "model")).restore_eval()
+        ckpt = {**params, **stats}
+        for k, v in state.model.state_dict().items():
+            assert torch.equal(v.cpu(), ckpt[k]), f"[spatial] main: checkpoint differs at {k}"
+        log(f"[spatial] trainer.main, spatial_train in a 1-rank torchrun-style group (NCCL): "
+            f"{state.step} steps in {wall:.1f} s, launches {counts}, train losses {losses}, "
+            f"checkpoint of epoch {epoch} equal to main's state bit for bit")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def conv_times(model, batch, summary):
     """Phase 14: B's and C's calls of one eval forward of the trained model
     on a device-pyramid batch (plain edges), each against its plain version,
@@ -2802,6 +3213,8 @@ def conv_times(model, batch, summary):
 
 def main() -> int:
     faulthandler.enable()
+    if len(sys.argv) > 1 and sys.argv[1] == "--spatial-rank":
+        return spatial_rank(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
@@ -3519,6 +3932,13 @@ def main() -> int:
     t0 = time.time()
     variants_phase(all_kernels, smi)
     log(f"[variants] phase 17: {time.time() - t0:.1f} s")
+
+    # ---- 18 spatial: one batch's points sharded over the ranks -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    spatial_phase(cfg, batch, all_kernels, smi)
+    log(f"[spatial] phase 18: {time.time() - t0:.1f} s")
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

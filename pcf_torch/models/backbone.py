@@ -33,6 +33,7 @@ from pcf_torch.nn.layers import (PCFLayer, PointConv, PointConvStridePE, PointCo
                                  PointTransformerLayer, check_ported, dtype_of)
 from pcf_torch.nn.norm import LinearBN
 from pcf_torch.nn.resstack import ResBlockStack, remat_contexts
+from pcf_torch.nn.sharded import spatial_full
 from pcf_torch.ops.gather import index_points, index_points_multi
 from pcf_torch.ops.vi_transform import (VI_coordinate_transform, localize_cm, localize_flat,
                                         split_geom_flat, vi_transform_cm, vi_transform_flat)
@@ -76,38 +77,41 @@ def _stage_geometry(xyz, nei_inds, norms, use_vi, cfg=None):
     combined gather, cast to the compute dtype (the geometry arithmetic
     itself stays f32). With cfg.flat_geom and windowed edges both are k-major
     flat, [M, K*3] and [M, K*12], from the flat resolve, and carry no
-    gradient (pcf_tpu stops it there too)."""
+    gradient (pcf_tpu stops it there too). Under spatial sharding
+    (nn/sharded.py) xyz and norms are this rank's rows: the neighbours are
+    gathered from their full tables, the centres are the rows themselves."""
     dtype = None if cfg is None else dtype_of(cfg)
+    src_xyz, src_norms = spatial_full(xyz, norms if use_vi else None)
     if cfg is not None and cfg.get("cm_geom") and isinstance(nei_inds, WindowedEdges):
         if use_vi:
-            g6 = windowed_take_cm(torch.cat([xyz, norms], -1), nei_inds)
+            g6 = windowed_take_cm(torch.cat([src_xyz, src_norms], -1), nei_inds)
             loc_cm = localize_cm(g6[:3], xyz)
             localized = loc_cm.permute(1, 2, 0)
             vi = vi_transform_cm(loc_cm, g6[3:], norms).permute(1, 2, 0)
             if dtype is not None:
                 localized, vi = localized.to(dtype), vi.to(dtype)
             return localized, vi
-        localized = localize_cm(windowed_take_cm(xyz, nei_inds), xyz).permute(1, 2, 0)
+        localized = localize_cm(windowed_take_cm(src_xyz, nei_inds), xyz).permute(1, 2, 0)
         return (localized if dtype is None else localized.to(dtype)), None
     if cfg is not None and cfg.get("flat_geom") and isinstance(nei_inds, WindowedEdges):
         if use_vi:
-            gx, gn = split_geom_flat(windowed_take_flat(torch.cat([xyz, norms], -1),
+            gx, gn = split_geom_flat(windowed_take_flat(torch.cat([src_xyz, src_norms], -1),
                                                         nei_inds))
             localized = localize_flat(gx, xyz)
             vi = vi_transform_flat(localized, gn, norms)
             if dtype is not None:
                 localized, vi = localized.to(dtype), vi.to(dtype)
             return localized, vi
-        localized = localize_flat(windowed_take_flat(xyz, nei_inds), xyz)
+        localized = localize_flat(windowed_take_flat(src_xyz, nei_inds), xyz)
         return (localized if dtype is None else localized.to(dtype)), None
     if use_vi:
-        gx, gn = index_points_multi([xyz, norms], nei_inds)
+        gx, gn = index_points_multi([src_xyz, src_norms], nei_inds)
         localized = gx - xyz[:, None, :]
         vi = VI_coordinate_transform(localized, gn, norms)
         if dtype is not None:
             localized, vi = localized.to(dtype), vi.to(dtype)
         return localized, vi
-    localized = index_points(xyz, nei_inds) - xyz[:, None, :]
+    localized = index_points(src_xyz, nei_inds) - xyz[:, None, :]
     return (localized if dtype is None else localized.to(dtype)), None
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from pcf_torch.nn.fused import FusedConvLinear
+from pcf_torch.nn.sharded import points_group
 from pcf_torch.ops.kernels.derived import cached
 from pcf_torch.ops.kernels.layer_eval import fused_layer_eval
 from pcf_torch.ops.window import WindowedEdges
@@ -42,10 +43,12 @@ _BN_EPS = 1e-5
 
 
 def fused_eval_ok(cfg, nei_inds, training: bool) -> bool:
-    """Gate: inference only, cfg.fused_eval, no spatial sharding, windowed
-    edges with kernel-compatible tiling (pcf_tpu's gate; it also refuses
-    flax's init, which has no counterpart here)."""
-    if training or not cfg.get("fused_eval") or cfg.get("spatial_axis"):
+    """Gate: inference only, cfg.fused_eval, no spatial sharding (neither
+    cfg.spatial_axis nor nn/sharded.sharded_points), windowed edges with
+    kernel-compatible tiling (pcf_tpu's gate; it also refuses flax's init,
+    which has no counterpart here)."""
+    if training or not cfg.get("fused_eval") or cfg.get("spatial_axis") \
+            or points_group() is not None:
         return False
     if not isinstance(nei_inds, WindowedEdges):
         return False

@@ -22,6 +22,12 @@ cfg.flat_geom the hoisted stage geometry arrives k-major flat [M, K*c]
 (models/backbone._stage_geometry); the WeightNet, PE and mlp_conv chain
 takes it flat, and it is unfolded to [M, K, c] where it meets the features
 (_flat_k, _unfold).
+Under spatial sharding (parallel/spatial.py) every row-aligned tensor is
+this rank's shard of the points and the neighbour indices stay global:
+inside `nn/sharded.sharded_points(group)` each layer gathers from the full
+tables of its gather sources, all-gathered over the group once per layer
+(spatial_full, pcf_tpu's _spatial_full), while centres, shortcuts and
+outputs stay sharded.
 Training mode is the module's `training` flag. Dropout and DropPath draw
 from an explicit torch.Generator that the train step hands every module with
 `set_generator` (pcf_tpu folds a fresh key per step), never from the global
@@ -45,22 +51,25 @@ from pcf_torch.nn.fused_eval import (fused_eval_ok, try_pcf_fused_eval,
 from pcf_torch.nn.guidance import MultiHeadGuidance, MultiHeadGuidanceQK
 from pcf_torch.nn.init import Dense
 from pcf_torch.nn.norm import LinearBN, MaskedBatchNorm, UnaryBlock
+from pcf_torch.nn.sharded import spatial_full
 from pcf_torch.nn.weightnet import WeightNet
 from pcf_torch.ops.gather import index_points, index_points_multi
 from pcf_torch.ops.pconv import guided_contraction, pconv
 from pcf_torch.ops.vi_transform import VI_coordinate_transform
 from pcf_torch.ops.window import WindowedEdges
 
-_NOT_PORTED = ("spatial_axis",)
-
 
 def check_ported(cfg) -> None:
-    """Raise for the config keys whose variants pcf_torch has not ported."""
-    for key in _NOT_PORTED:
-        if cfg.get(key):
-            raise NotImplementedError(f"cfg.{key} is not ported to pcf_torch yet")
+    """Raise for config values that pcf_torch does not take."""
     if cfg.get("resolve_impl", "xla") not in ("pallas", "xla"):
         raise ValueError(f"resolve_impl must be 'pallas' or 'xla', got {cfg.resolve_impl!r}")
+
+
+def _sources(need_xyz: bool, need_norm: bool, xyz, norm, *feats):
+    """A layer's gather sources (spatial_full): the coordinates and normals
+    only where the layer gathers them (no hoisted stage geometry), so that
+    sharded points all-gather nothing unused."""
+    return spatial_full(xyz if need_xyz else None, norm if need_norm else None, *feats)
 
 
 def dtype_of(cfg):
@@ -234,10 +243,12 @@ class PointConv(nn.Module):
             return try_pointconv_fused_eval(self, cfg, dense_feats, dense_xyz,
                                             dense_xyz_norm, nei_inds, center_xyz,
                                             center_norm, self.use_vi), None
+        need_norm = self.use_vi and vi_features is None
+        src_xyz, src_norm, src_feats = _sources(localized_xyz is None, need_norm,
+                                                dense_xyz, dense_xyz_norm, dense_feats)
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
-            nei_inds, dense_xyz, center_xyz, [] if self.use_fused else [dense_feats],
-            localized_xyz=localized_xyz, dense_xyz_norm=dense_xyz_norm,
-            need_norm=self.use_vi and vi_features is None)
+            nei_inds, src_xyz, center_xyz, [] if self.use_fused else [src_feats],
+            localized_xyz=localized_xyz, dense_xyz_norm=src_norm, need_norm=need_norm)
         if self.use_vi:
             wni = (vi_features if vi_features is not None else
                    VI_coordinate_transform(localized_xyz, gathered_norm, center_norm))
@@ -248,7 +259,7 @@ class PointConv(nn.Module):
         if flat_k:
             weights, wni = _unfold(weights, flat_k), _unfold(wni, flat_k)
         if self.use_fused:
-            new_feat = self.linear(dense_feats, nei_inds, weights,
+            new_feat = self.linear(src_feats, nei_inds, weights,
                                    additional_features=wni if cfg.USE_PE else None,
                                    mask=out_mask)
         else:
@@ -317,11 +328,14 @@ class PointConvStridePE(nn.Module):
                 center_xyz, center_norm, strided)
             return _residual(self, self.unary2(new_feat, out_mask), sparse_feats,
                              out_mask), None
-        feat_reqs = ([] if self.use_fused else [feats_x]) + ([dense_feats] if strided else [])
+        need_norm = cfg.USE_VI and vi_features is None
+        src_xyz, src_norm, src_feats_x, src_dense = _sources(
+            localized_xyz is None, need_norm, dense_xyz, dense_xyz_norm, feats_x,
+            dense_feats if strided else None)
+        feat_reqs = ([] if self.use_fused else [src_feats_x]) + ([src_dense] if strided else [])
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
-            nei_inds, dense_xyz, center_xyz, feat_reqs,
-            localized_xyz=localized_xyz, dense_xyz_norm=dense_xyz_norm,
-            need_norm=cfg.USE_VI and vi_features is None)
+            nei_inds, src_xyz, center_xyz, feat_reqs,
+            localized_xyz=localized_xyz, dense_xyz_norm=src_norm, need_norm=need_norm)
         wni = _weightnet_input(cfg, localized_xyz, gathered_norm, center_norm,
                                vi_features)
 
@@ -331,7 +345,7 @@ class PointConvStridePE(nn.Module):
         if flat_k:
             feat_pe, weights = _unfold(feat_pe, flat_k), _unfold(weights, flat_k)
         if self.use_fused:
-            new_feat = self.linear(feats_x, nei_inds, weights,
+            new_feat = self.linear(src_feats_x, nei_inds, weights,
                                    additional_features=feat_pe, mask=out_mask)
         else:
             gathered = torch.cat([gfeats[0], feat_pe], dim=-1)
@@ -409,12 +423,15 @@ class PCFLayer(nn.Module):
                 new_feat, sparse_feats = res
                 return _residual(self, self.unary2(new_feat, out_mask), sparse_feats,
                                  out_mask), None
-        feat_reqs = [guidance_x] + ([] if self.use_fused else [feats_x]) + (
-            [dense_feats] if strided else [])
+        need_norm = cfg.USE_VI and vi_features is None
+        src_xyz, src_norm, src_feats_x, src_guid, src_dense = _sources(
+            localized_xyz is None, need_norm, dense_xyz, dense_xyz_norm, feats_x,
+            guidance_x, dense_feats if strided else None)
+        feat_reqs = [src_guid] + ([] if self.use_fused else [src_feats_x]) + (
+            [src_dense] if strided else [])
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
-            nei_inds, dense_xyz, center_xyz, feat_reqs,
-            localized_xyz=localized_xyz, dense_xyz_norm=dense_xyz_norm,
-            need_norm=cfg.USE_VI and vi_features is None)
+            nei_inds, src_xyz, center_xyz, feat_reqs,
+            localized_xyz=localized_xyz, dense_xyz_norm=src_norm, need_norm=need_norm)
         wni = _weightnet_input(cfg, localized_xyz, gathered_norm, center_norm,
                                vi_features)
 
@@ -435,7 +452,7 @@ class PCFLayer(nn.Module):
             weights = _unfold(weights, flat_k)
 
         if self.use_fused:
-            new_feat = self.linear(feats_x, nei_inds, weights,
+            new_feat = self.linear(src_feats_x, nei_inds, weights,
                                    guidance=guidance_score, mask=out_mask)
         else:
             new_feat = pconv(guided_contraction(gfeats[1], guidance_score), weights,
@@ -496,10 +513,12 @@ class PointConvTransposePE(nn.Module):
                                                 sparse_xyz_norm, nei_inds, dense_xyz,
                                                 dense_xyz_norm)
             return self._head(new_feat, dense_feats, out_mask), None
+        need_norm = cfg.USE_VI and vi_features is None
+        src_xyz, src_norm, src_feats = _sources(True, need_norm, sparse_xyz,
+                                                sparse_xyz_norm, sparse_feats)
         localized_xyz, gathered_norm, gfeats = _gathered_inputs(
-            nei_inds, sparse_xyz, dense_xyz, [] if self.use_fused else [sparse_feats],
-            dense_xyz_norm=sparse_xyz_norm,
-            need_norm=cfg.USE_VI and vi_features is None)
+            nei_inds, src_xyz, dense_xyz, [] if self.use_fused else [src_feats],
+            dense_xyz_norm=src_norm, need_norm=need_norm)
         wni = _weightnet_input(cfg, localized_xyz, gathered_norm, dense_xyz_norm,
                                vi_features)
         # decoder edges are never hoisted, so the flat forms do not arrive
@@ -515,7 +534,7 @@ class PointConvTransposePE(nn.Module):
         if flat_k:
             weights = _unfold(weights, flat_k)
         if self.use_fused:
-            new_feat = self.linear(sparse_feats, nei_inds, weights,
+            new_feat = self.linear(src_feats, nei_inds, weights,
                                    additional_features=feat_pe, mask=out_mask)
         else:
             gathered = gfeats[0]

@@ -26,15 +26,18 @@ from torch.utils.checkpoint import checkpoint
 
 from pcf_torch.nn.layers import PCFLayer, kept_draws
 from pcf_torch.nn.norm import frozen_running_stats, sync_group, synced_batch_stats
+from pcf_torch.nn.sharded import points_group, sharded_points
 
 
 @contextmanager
-def _recompute(draws: list, group):
+def _recompute(draws: list, group, points):
     """checkpoint's recompute of a block in the backward: its dropout and
     DropPath masks are the ones its forward drew (`draws`), the BN running
-    statistics stay as they are, and its BN statistics are summed over the
-    process group its forward summed them over (SyncBN)."""
-    with frozen_running_stats(), kept_draws(draws, replay=True), synced_batch_stats(group):
+    statistics stay as they are, its BN statistics are summed over the
+    process group its forward summed them over (SyncBN), and its points are
+    sharded over the group its forward's were (nn/sharded.py)."""
+    with frozen_running_stats(), kept_draws(draws, replay=True), \
+            synced_batch_stats(group), sharded_points(points):
         yield
 
 
@@ -47,7 +50,7 @@ def remat_contexts():
     and the recompute replays them. The generator's state is never read or
     set, which a CUDA graph capture would refuse."""
     draws = []
-    return kept_draws(draws, replay=False), _recompute(draws, sync_group())
+    return kept_draws(draws, replay=False), _recompute(draws, sync_group(), points_group())
 
 
 class ResBlockStack(nn.Module):

@@ -18,7 +18,10 @@ them (:116-118, one all_reduce), draws dropout from the step's seed folded
 with the rank (fold_in(rng, axis_index), :128), and, with cfg.bn_axis_name
 set (trainer.build_mesh_and_cfg), sums every BatchNorm's masked statistics
 over the ranks (nn/norm.synced_batch_stats, SyncBN). The eval step runs no
-collective and returns the rank's own logits.
+collective and returns the rank's own logits. make_mesh_2d lays the ranks
+out as pcf_tpu's (data, space) mesh, for the spatial steps
+(parallel/spatial.py), whose train step is this module's body with the
+point dimension sharded (_train_parts' `spatial`).
 
 On a CUDA model, make_train_step and make_eval_step run their step through
 parallel/graphs.StepGraphs: one CUDA graph per key, captured at the key's
@@ -28,15 +31,16 @@ optimizer), the parameters' dtype, the model's cfg.compute_dtype,
 cfg.fused_eval and cfg.flat_geom, and for the train step whether the update
 ends an accumulation; beside it, the stamp of the tensors the graph reads
 (graphs.py): for the train step its weights' addresses, for the eval step
-their addresses and _versions. On the CPU they run
-the eager bodies, make_eager_train_step and make_eager_eval_step, which are
-also the steps that chip_smoke.py counts kernel launches in.
+their addresses and _versions. On the CPU, and under a mesh whose
+collectives a CUDA graph cannot hold (gloo), they run the eager bodies,
+make_eager_train_step and make_eager_eval_step, which are also the steps
+that chip_smoke.py counts kernel launches in.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -46,6 +50,7 @@ import torch.distributed as dist
 from pcf_torch.core.batching import PackedPyramid
 from pcf_torch.nn.layers import set_generator
 from pcf_torch.nn.norm import synced_batch_stats
+from pcf_torch.nn.sharded import sharded_points
 from pcf_torch.ops.kernels.derived import model_tensors, stamp, weights_written
 from pcf_torch.ops.kernels.window_scatter import shared_inverses
 from pcf_torch.parallel.graphs import StepGraphs
@@ -62,13 +67,27 @@ class Mesh:
     """The port's data mesh: this process's rank of `size` in `group` (the
     step's collectives), its device, and `control`, a gloo group over the
     same ranks on the host (the loops agree there on whether every rank has
-    another batch, with no wait for the card)."""
+    another batch, with no wait for the card). A 2-D mesh (make_mesh_2d)
+    has `shape` (D, S), and this rank's `data` and `space` subgroups: the
+    ranks of its space index and of its data index."""
 
     group: Any
     control: Any
     size: int
     rank: int
     device: torch.device
+    shape: tuple = ()
+    data: Any = None
+    space: Any = None
+
+    def space_axis(self) -> tuple:
+        """(group, size, index) of the mesh's last axis, which the spatial
+        steps shard the points over, and (size, index) of its data axis:
+        a 1-D mesh is all space, one data index."""
+        if len(self.shape) == 2:
+            D, S = self.shape
+            return self.space, S, self.rank % S, D, self.rank // S
+        return self.group, self.size, self.rank, 1, 0
 
 
 def make_mesh(n: int | None = None, device=None) -> Mesh:
@@ -88,7 +107,20 @@ def make_mesh(n: int | None = None, device=None) -> Mesh:
         device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
                   if backend == "nccl" else torch.device("cpu"))
     control = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
-    return Mesh(dist.group.WORLD, control, size, rank, torch.device(device))
+    return Mesh(dist.group.WORLD, control, size, rank, torch.device(device), (size,))
+
+
+def make_mesh_2d(data: int, space: int, device=None) -> Mesh:
+    """A (data, space) mesh over the whole initialised process group, as
+    pcf_tpu's Mesh(devices.reshape(data, space), ("data", "space")): rank r
+    at data index r // space and space index r % space. Every rank creates
+    every subgroup, in the same order (dist.new_group's rule), and keeps
+    its own two."""
+    base = make_mesh(data * space, device)
+    spaces = [dist.new_group(list(range(d * space, (d + 1) * space))) for d in range(data)]
+    datas = [dist.new_group(list(range(s, data * space, space))) for s in range(space)]
+    return replace(base, shape=(data, space), data=datas[base.rank % space],
+                   space=spaces[base.rank // space])
 
 
 def all_have(mesh: Mesh | None, have: bool) -> bool:
@@ -101,16 +133,17 @@ def all_have(mesh: Mesh | None, have: bool) -> bool:
     return bool(flag.item())
 
 
-def _mean_grads(grads: list, mesh: Mesh) -> None:
-    """pcf_tpu's pmean of the gradients: summed over the ranks in one flat
-    buffer per dtype, then divided by the mesh's size, in place."""
+def _mean_grads(grads: list, mesh: Mesh, div: int) -> None:
+    """pcf_tpu's pmean of the gradients: summed over the mesh's ranks in one
+    flat buffer per dtype, then divided by `div` (the data axis's size), in
+    place."""
     by_dtype: dict = {}
     for g in grads:
         by_dtype.setdefault(g.dtype, []).append(g)
     for same in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in same])
         dist.all_reduce(flat, group=mesh.group)
-        flat.div_(mesh.size)
+        flat.div_(div)
         torch._foreach_copy_(same, [f.view_as(g) for f, g in
                                     zip(flat.split([g.numel() for g in same]), same)])
 
@@ -140,11 +173,19 @@ def _program_key(model) -> tuple:
             bool(cfg.get("fused_eval")), bool(cfg.get("flat_geom")))
 
 
-def _train_parts(cfg, class_weights, mesh=None):
+def _train_parts(cfg, class_weights, mesh=None, spatial=False):
     """(body, seeded): body(model, tx, batch, generator, steps) -> (metrics,
     gradients) is the device work of one step, with the mesh's collectives;
     seeded(device, seed) is the step function's one generator for `device`,
-    seeded with `seed` (folded with the rank under a mesh)."""
+    seeded with `seed` (folded with the rank under a mesh).
+
+    `spatial` (parallel/spatial.py, pcf_tpu's make_spatial_train_step): the
+    batch is this rank's shard of one batch's points, sharded over the
+    mesh's space axis (Mesh.space_axis); the layers gather from full tables
+    (nn/sharded.sharded_points), the loss sums over the space axis, SyncBN
+    over every rank of the mesh, the gradients are summed over the ranks
+    and divided by the data axis's size, and the seed is folded with the
+    data index, then the space index."""
     num_classes = cfg.num_classes
     label_smoothing = float(cfg.label_smoothing or 0.0)
     ignore_label = cfg.ignore_label
@@ -152,10 +193,17 @@ def _train_parts(cfg, class_weights, mesh=None):
                                                             dtype=torch.float32)
     per_device = {}
     bn_group = mesh.group if mesh is not None and cfg.get("bn_axis_name") else None
+    points, grad_div, folds = None, 1 if mesh is None else mesh.size, ()
+    if mesh is not None:
+        folds = (mesh.rank,)
+    if spatial:
+        points, _, s, grad_div, d = mesh.space_axis()
+        bn_group = mesh.group
+        folds = (d, s) if len(mesh.shape) == 2 else (s,)
 
     def seeded(device, seed):
-        if mesh is not None:
-            seed = step_seed(seed, mesh.rank)
+        for index in folds:
+            seed = step_seed(seed, index)
         if device not in per_device:
             per_device[device] = (torch.Generator(device),
                                   None if cw is None else cw.to(device))
@@ -167,16 +215,16 @@ def _train_parts(cfg, class_weights, mesh=None):
         set_generator(model, generator)
         for p in model.parameters():
             p.grad = None
-        with synced_batch_stats(bn_group):
+        with synced_batch_stats(bn_group), sharded_points(points):
             logits = model.forward_batch(batch)
             loss, _ = cross_entropy_loss(
                 logits, batch.labels, mask=batch.masks[0],
                 class_weights=per_device[logits.device][1],
-                label_smoothing=label_smoothing, ignore_label=ignore_label)
+                label_smoothing=label_smoothing, ignore_label=ignore_label, group=points)
             with shared_inverses():  # kernel D inverts each edge set once
                 loss.backward()
         if mesh is not None:
-            _mean_grads([p.grad for p in tx.params if p.grad is not None], mesh)
+            _mean_grads([p.grad for p in tx.params if p.grad is not None], mesh, grad_div)
         tx.apply(steps)
         set_generator(model, None)
         with torch.no_grad():
@@ -199,6 +247,12 @@ def _advance(state: TrainState) -> None:
     state.tx.count += 1
     state.step += 1
     weights_written(model_tensors(state.model))
+
+
+def _captures(device: torch.device, mesh: Mesh | None) -> bool:
+    """Whether a step on `device` runs as CUDA graphs: on the card, where
+    the mesh's collectives (if any) are NCCL's, which a graph can hold."""
+    return device.type == "cuda" and (mesh is None or dist.get_backend(mesh.group) == "nccl")
 
 
 def _eager_train(body, seeded):
@@ -232,19 +286,27 @@ def make_train_step(cfg, mesh=None, class_weights=None
     StepGraphs. Under a mesh the graph holds the step's collectives; its
     first call, eager, is the communicator's first use, as NCCL needs
     before a capture."""
-    body, seeded = _train_parts(cfg, class_weights, mesh)
+    return _captured_train(*_train_parts(cfg, class_weights, mesh), mesh)
+
+
+def _captured_train(body, seeded, mesh, prepare=None, tag=()):
+    """make_train_step's step on body and seeded (_train_parts); `prepare`
+    maps the caller's batch to the step's own (parallel/spatial.py: this
+    rank's shard), and `tag` joins the graphs' program key."""
     eager = _eager_train(body, seeded)
     graphs = StepGraphs()
 
     def step(state: TrainState, batch: PackedPyramid, seed: int):
+        if prepare is not None:
+            batch = prepare(batch)
         model, tx = state.model, state.tx
         device = next(model.parameters()).device
-        if device.type != "cuda":
+        if not _captures(device, mesh):
             return eager(state, batch, seed)
         generator, _ = seeded(device, seed)
         steps = tx.begin()
         (metrics, grads), replayed = graphs.run(
-            (_program_key(model), id(tx), steps), batch.signature(),
+            (_program_key(model), id(tx), steps) + tag, batch.signature(),
             tuple(t.data_ptr() for t in model_tensors(model)),
             lambda b: body(model, tx, b, generator, steps), batch, device,
             generator=generator, keep=(model, tx))
@@ -281,15 +343,22 @@ def make_eval_step(cfg, mesh=None) -> Callable[[TrainState, PackedPyramid], torc
     (see the module), for the standard, cfg.fused_eval and cfg.flat_geom
     forwards alike; the logits handed back are a copy. `eval_step.graphs`
     is the StepGraphs."""
-    eager = make_eager_eval_step(cfg, mesh)
+    return _captured_eval(make_eager_eval_step(cfg, mesh), mesh)
+
+
+def _captured_eval(eager, mesh, prepare=None, tag=()):
+    """make_eval_step's step on the eager step `eager`; `prepare` and `tag`
+    as _captured_train's."""
     graphs = StepGraphs()
 
     def eval_step(state, batch: PackedPyramid):
+        if prepare is not None:
+            batch = prepare(batch)
         model = getattr(state, "model", state)
         device = next(model.parameters()).device
-        if device.type != "cuda":
+        if not _captures(device, mesh):
             return eager(model, batch)
-        logits, replayed = graphs.run(_program_key(model), batch.signature(),
+        logits, replayed = graphs.run(_program_key(model) + tag, batch.signature(),
                                       stamp(model_tensors(model)), lambda b: eager(model, b),
                                       batch, device, keep=(model,))
         return logits.clone() if replayed else logits

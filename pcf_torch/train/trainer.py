@@ -12,8 +12,12 @@ environment, main joins the process group that torchrun's environment
 names (NCCL on cuda:LOCAL_RANK, gloo on the CPU), and with more than one
 rank trains on a mesh (build_mesh_and_cfg: SyncBN, pinned level caps,
 window overflow dropped), each rank on its own shard of the scenes; only
-rank 0 logs, snapshots the code and writes checkpoints. spatial_train (the
-point dimension sharded over the mesh) is not ported yet and raises. Under
+rank 0 logs, snapshots the code and writes checkpoints. With
+cfg.spatial_train in a process group (pcf_tpu's :290-300) every rank loads
+the same batches, the whole loader, and the steps shard each batch's points
+over the ranks (parallel/spatial.py); the loop then runs as without a mesh,
+the collectives inside the steps. In one process spatial_train changes
+nothing, as in pcf_tpu, whose mesh is None on one device. Under
 cfg.post_knn or cfg.device_pyramid every batch is completed
 on the device (data/post_knn.make_prepare, one CUDA graph per batch
 signature) before its step. Metrics stay on the device until a print
@@ -25,6 +29,7 @@ with torch.profiler.
 Usage: python -m pcf_torch.train.trainer --config pcf_tpu/configs/pcf_10cm.yaml
        [--set KEY=VALUE ...] [--device cpu]
        torchrun --nproc_per_node=N -m pcf_torch.train.trainer --config ...
+           [--set spatial_train=true]
 """
 
 from __future__ import annotations
@@ -253,13 +258,6 @@ def validate(eval_step, state, loader, mesh, cfg, logger, prepare=None):
     return miou, macc, allacc
 
 
-def _check_ported(cfg):
-    if cfg.get("spatial_train"):
-        raise NotImplementedError(
-            "spatial_train (the point dimension sharded over the mesh) is not ported "
-            "to pcf_torch yet")
-
-
 def _distributed(cfg) -> bool:
     """Whether main joins a process group: multi_host, data_parallel > 1, or
     a torchrun world of more than one rank."""
@@ -283,14 +281,20 @@ def main(cfg, device=None):
     from pcf_torch.utils.cache import enable_compile_cache
     from pcf_torch.utils.experiment import MetricsWriter, snapshot_code
 
-    _check_ported(cfg)
+    if cfg.get("spatial_train"):
+        from pcf_torch.parallel.spatial import check_family
+
+        check_family(cfg)
     device = resolve_device(device)
     rank, world = 0, 1
     if _distributed(cfg):
         rank, world, local = init_distributed(device.type)
         if device.type == "cuda":
             device = torch.device("cuda", local)
-    mesh = build_mesh_and_cfg(cfg, device)
+    # spatial_train: one batch per step, its points sharded over every rank
+    # of the group (even one), in place of one batch per rank
+    spatial = bool(cfg.get("spatial_train")) and dist.is_available() and dist.is_initialized()
+    mesh = make_mesh(None, device) if spatial else build_mesh_and_cfg(cfg, device)
     if mesh is not None:
         # pinned level caps: every rank's batches have the same shapes, and
         # the step is captured once; a window overflow drops the scene (a
@@ -312,7 +316,10 @@ def main(cfg, device=None):
         snapshot_code(exp_dir, cfg.get("config"))
     writer = MetricsWriter(exp_dir, cfg.get("use_tensorboard", False)) if rank == 0 else None
     try:
-        train_loader, val_loader, _, _ = getdataLoaders(cfg, rank, world)
+        # under spatial_train every rank reads the whole loader, the same
+        # batches in the same order (the same seed)
+        train_loader, val_loader, _, _ = (getdataLoaders(cfg) if spatial else
+                                          getdataLoaders(cfg, rank, world))
         logger.info(f"level caps {cfg.get('level_caps')}, window sizes "
                     f"{cfg.get('window_sizes')}")
 
@@ -320,9 +327,12 @@ def main(cfg, device=None):
         n_params = sum(p.numel() for p in model.parameters())
         logger.info(f"model parameters: {n_params / 1e6:.2f}M")
 
-        # this rank's shard: len(dataset) // world scenes in batches of
-        # BATCH_SIZE, pcf_tpu's len(train_loader) // mesh.size for the same
-        # data and device count
+        # the steps of an epoch. Data parallel: this rank's shard,
+        # len(dataset) // world scenes in batches of BATCH_SIZE, pcf_tpu's
+        # len(train_loader) // mesh.size for the same data and device count.
+        # spatial_train: every batch, one a step (pcf_tpu divides by the mesh
+        # size there too, which makes its schedule's epochs that many times
+        # shorter than its loop's)
         iter_per_epoch = max(len(train_loader), 1)
         tx, schedule = make_optimizer(cfg, iter_per_epoch)
         state = create_train_state(model, tx)
@@ -343,8 +353,16 @@ def main(cfg, device=None):
             logger.info(f"resumed from epoch {init_epoch}")
 
         class_weights = cfg.get("weights") if cfg.USE_WEIGHT else None
-        step_fn = make_train_step(cfg, mesh, class_weights=class_weights)
-        eval_step = make_eval_step(cfg, mesh)
+        if spatial:
+            from pcf_torch.parallel.spatial import (make_spatial_eval_step,
+                                                    make_spatial_train_step)
+
+            step_fn = make_spatial_train_step(cfg, mesh, class_weights=class_weights)
+            eval_step = make_spatial_eval_step(cfg, mesh)
+            mesh = None  # the loops see one process: the collectives are the steps'
+        else:
+            step_fn = make_train_step(cfg, mesh, class_weights=class_weights)
+            eval_step = make_eval_step(cfg, mesh)
         prepare = _post_knn_fn(cfg)  # one for the run: its graphs outlive epochs
 
         best_miou = 0.0

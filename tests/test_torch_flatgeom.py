@@ -166,10 +166,11 @@ def test_model_flat_geom_matches_pcf_tpu():
                                     rng=np.random.default_rng(3), morton=True)], **kw)
     mp.undo()
     jm = JSeg(_cfg(JConfig, j_defaults))
-    init = _np_tree(jm.init(jax.random.PRNGKey(0), *_args(jb), masks=list(jb.masks),
-                            train=False))
-    want_train, upd = jm.apply(init, *_args(jb), masks=list(jb.masks), train=True,
-                               mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(1)})
+    init = _np_tree(jax.jit(lambda k: jm.init(k, *_args(jb), masks=list(jb.masks),
+                                              train=False))(jax.random.PRNGKey(0)))
+    want_train, upd = jax.jit(lambda v: jm.apply(
+        v, *_args(jb), masks=list(jb.masks), train=True, mutable=["batch_stats"],
+        rngs={"dropout": jax.random.PRNGKey(1)}))(init)
     after = {"params": init["params"], "batch_stats": _np_tree(upd["batch_stats"])}
     want = jm.apply(after, *_args(jb), masks=list(jb.masks), train=False)
 

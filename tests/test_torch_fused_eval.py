@@ -351,8 +351,9 @@ def small_model():
     tb = pack_scenes([scene_to_item(c, n, f, l, GRID, 8, 8, 8,
                                     rng=np.random.default_rng(3), morton=True)], **kw)
     mp.undo()
-    variables = JSeg(_model_cfg(JConfig, j_defaults)).init(
-        jax.random.PRNGKey(0), *_args(jb), masks=list(jb.masks), train=False)
+    jmodel = JSeg(_model_cfg(JConfig, j_defaults))
+    variables = jax.jit(lambda k: jmodel.init(k, *_args(jb), masks=list(jb.masks),
+                                              train=False))(jax.random.PRNGKey(0))
     return jb, tb, _randomize_bn(_to_np_tree(variables), np.random.default_rng(5))
 
 
@@ -405,12 +406,30 @@ def test_fused_eval_folds_follow_a_train_step(small_model):
 
 
 def test_fused_eval_and_flat_geom_are_ported():
-    """fused_eval, flat_geom and cm_geom build; spatial_axis (spatial
-    sharding), still to be ported, raises."""
-    for key in ("fused_eval", "flat_geom", "cm_geom"):
+    """fused_eval, flat_geom, cm_geom and spatial_axis build; spatial
+    sharding (cfg.spatial_axis, or the port's sharded_points context) turns
+    the whole-layer kernel off, as pcf_tpu's gate does."""
+    from pcf_torch.nn.sharded import sharded_points
+
+    for key in ("fused_eval", "flat_geom", "cm_geom", "spatial_axis"):
         build(_model_cfg(Config, get_default_configs, **{key: True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="spatial_axis"):
-        build(_model_cfg(Config, get_default_configs, spatial_axis=True), device="cpu")
+    jw = j_windows(np.zeros((256, 16), np.int32), tile=128, window=128, strict=False)
+    tw = WindowedEdges(*(torch.from_numpy(np.array(a)) for a in
+                         (jw.nei, jw.window_rows, jw.localT)))
+    on = Config(fused_eval=True)
+    assert t_fe.fused_eval_ok(on, tw, False)
+    assert not t_fe.fused_eval_ok(Config(fused_eval=True, spatial_axis="space"), tw, False)
+
+    class _L:  # pcf_tpu's gate asks the layer whether flax is initialising
+        @staticmethod
+        def is_initializing():
+            return False
+
+    assert j_fe.fused_eval_ok(JConfig(fused_eval=True), _L, jw, train=False)
+    assert not j_fe.fused_eval_ok(JConfig(fused_eval=True, spatial_axis="space"), _L, jw,
+                                  train=False)
+    with sharded_points(object()):
+        assert not t_fe.fused_eval_ok(on, tw, False)
 
 
 def test_pcf_tpu_bf16_kernel_misreads_self_edges():

@@ -113,8 +113,8 @@ def test_signature_splits_where_jax_jit_retraces(batches):
     jcfg.update(milestones=[100], warmup_epochs=1)
     jmodel = JSeg(jcfg)
     jb0 = batches[0][0]
-    variables = jmodel.init(jax.random.PRNGKey(0), *_args(jb0), masks=list(jb0.masks),
-                            train=False)
+    variables = jax.jit(lambda k: jmodel.init(k, *_args(jb0), masks=list(jb0.masks),
+                                              train=False))(jax.random.PRNGKey(0))
     state = j_state(variables, j_make_optimizer(jcfg)[0])
     ev = j_make_eval_step(jmodel, jcfg)
     seen, grew, new = [], [], []

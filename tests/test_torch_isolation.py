@@ -25,7 +25,8 @@ import chip_smoke  # its module-level imports; main() needs the card
 missing = [m for m in ("pcf_torch.native", "pcf_torch.data.scannet", "pcf_torch.data.prepare",
                        "pcf_torch.train.trainer", "pcf_torch.eval.simple", "pcf_torch.utils.cache",
                        "pcf_torch.ops.knn", "pcf_torch.data.post_knn", "pcf_torch.eval.voting",
-                       "pcf_torch.serve.export", "pcf_torch.serve.predict")
+                       "pcf_torch.serve.export", "pcf_torch.serve.predict",
+                       "pcf_torch.parallel.spatial", "pcf_torch.nn.sharded")
            if m not in sys.modules]
 assert not missing, missing
 bad = sorted(n for n in sys.modules

@@ -6,7 +6,8 @@ virtual devices (tests/conftest.py), fed stack_batches of the same two
 batches, with the weights carried by load_jax_variables.
 
 The ranks are processes (tests/torch_dist_worker.py), started once for the
-module and killed at a deadline: a hung rendezvous fails the tests. Both
+module, while this process computes pcf_tpu's steps, and killed at a
+deadline: a hung rendezvous fails the tests. Both
 packages run their plain paths (no Pallas, XLA gathers: the collectives are
 what is held here) and every ReLU smooth (tests/test_torch_train_step.py:
 the train step's gradient has kinks within f32 rounding). Tolerances are
@@ -38,7 +39,7 @@ from pcf_torch.train.state import create_train_state, make_optimizer
 
 from test_torch_train import GRID, _jcfg, _tcfg
 from test_torch_train_step import GRAD_ATOL, RTOL, _assert_grads_close
-from torch_dist_worker import spawn
+from torch_dist_worker import start
 
 SEED = 7
 PLAIN = dict(USE_PALLAS_KERNEL=False, resolve_impl="xla", window_gather=True,
@@ -87,17 +88,17 @@ def runs(tmp_path_factory):
     jcfg = _jcfg(**PLAIN, bn_axis_name=AXIS, sync_bn=True)
     tcfg = _tcfg(**PLAIN, bn_axis_name=AXIS, sync_bn=True)
     jmodel = JSeg(jcfg)
-    variables = jax.tree_util.tree_map(np.asarray, dict(jmodel.init(
-        jax.random.PRNGKey(0), *_args(jbs[0]), masks=list(jbs[0].masks), train=False)))
+    variables = jax.tree_util.tree_map(np.asarray, dict(jax.jit(lambda k: jmodel.init(
+        k, *_args(jbs[0]), masks=list(jbs[0].masks), train=False))(jax.random.PRNGKey(0))))
 
     rng = np.random.default_rng(11)
     bn_rows = (torch.from_numpy(rng.standard_normal((2 * 300, 6)).astype(np.float32) * 3 + 1),
                torch.from_numpy(rng.random(2 * 300) < 0.8),
                torch.from_numpy(rng.standard_normal((2 * 300, 6)).astype(np.float32)))
     drop_cfg = _tcfg(**PLAIN, drop_path_rate=0.3)
-    port = spawn("steps", 2, dict(cfg=tcfg, drop_cfg=drop_cfg, variables=variables,
-                                  batches=tbs, seed=SEED, smooth=True, bn=bn_rows),
-                 tmp_path_factory.mktemp("mesh"))
+    ranks = start("steps", 2, dict(cfg=tcfg, drop_cfg=drop_cfg, variables=variables,
+                                   batches=tbs, seed=SEED, smooth=True, bn=bn_rows),
+                  tmp_path_factory.mktemp("mesh"))
 
     _jsmooth(mp)
     from pcf_tpu.parallel import make_eval_step as j_eval_step
@@ -138,7 +139,7 @@ def runs(tmp_path_factory):
 
     grad_model = by_key(grads, variables["batch_stats"])
     return dict(
-        port=port, tbs=tbs, variables=variables, drop_cfg=drop_cfg, bn=bn_rows,
+        port=ranks(), tbs=tbs, variables=variables, drop_cfg=drop_cfg, bn=bn_rows,
         logits=np.asarray(logits), loss=float(loss),
         grads={k: p.detach().numpy() for k, p in grad_model.named_parameters()},
         state=by_key(jstate.params, jstate.batch_stats).state_dict(),

@@ -57,8 +57,8 @@ def pair(monkeypatch_module):
                                     rng=np.random.default_rng(3), morton=True)],
                      bucket_multiple=128, **kw)
     jmodel = JSeg(_cfg(JConfig, j_defaults))
-    variables = jmodel.init(jax.random.PRNGKey(0), *_args(jb), masks=list(jb.masks),
-                            train=False)
+    variables = jax.jit(lambda k: jmodel.init(k, *_args(jb), masks=list(jb.masks),
+                                              train=False))(jax.random.PRNGKey(0))
     variables = jax.tree_util.tree_map(np.asarray, dict(variables))
     return jmodel, jb, variables, tb
 

@@ -89,8 +89,9 @@ def ref(tmp_path_factory):
     jb, _ = _batches(260, 0, True)
     cfg = _cfg(JConfig, j_defaults, **WINDOW)
     jmodel = JSeg(cfg)
-    vs = jmodel.init(jax.random.PRNGKey(0), *j_batch_args(jb)[:-1],
-                     masks=j_batch_args(jb)[-1], train=False)
+    vs = jax.jit(lambda k: jmodel.init(k, *j_batch_args(jb)[:-1],
+                                       masks=j_batch_args(jb)[-1], train=False))(
+        jax.random.PRNGKey(0))
     vs = jax.tree_util.tree_map(np.array, dict(vs))
     rng = np.random.default_rng(1)
     for path, v in jax.tree_util.tree_flatten_with_path(vs["batch_stats"])[0]:

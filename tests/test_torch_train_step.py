@@ -71,8 +71,9 @@ def pair(monkeypatch_module):
     tb = pack_scenes([scene_to_item(c, n, f, l, GRID, 8, 8, 8,
                                     rng=np.random.default_rng(3), morton=True)],
                      bucket_multiple=128, **kw)
-    variables = JSeg(_jcfg()).init(jax.random.PRNGKey(0), *_args(jb),
-                                   masks=list(jb.masks), train=False)
+    jmodel = JSeg(_jcfg())
+    variables = jax.jit(lambda k: jmodel.init(k, *_args(jb), masks=list(jb.masks),
+                                              train=False))(jax.random.PRNGKey(0))
     return jb, tb, jax.tree_util.tree_map(np.asarray, dict(variables))
 
 

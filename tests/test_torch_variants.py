@@ -232,9 +232,11 @@ def test_classification_matches_pcf_tpu(clouds, bids):
     args = (jb.feats, list(jb.points), list(jb.edges_self), list(jb.edges_forward),
             list(jb.norms))
     kw = dict(masks=list(jb.masks), bids=jb.bids[-1] if bids else None)
-    variables = _np(jmodel.init(jax.random.PRNGKey(0), *args, train=False, **kw))
-    want_eval = jmodel.apply(variables, *args, train=False, **kw)
-    want_train, _ = jmodel.apply(variables, *args, train=True, mutable=["batch_stats"], **kw)
+    variables = _np(jax.jit(lambda k: jmodel.init(k, *args, train=False, **kw))(
+        jax.random.PRNGKey(0)))
+    want_eval = jax.jit(lambda v: jmodel.apply(v, *args, train=False, **kw))(variables)
+    want_train, _ = jax.jit(lambda v: jmodel.apply(v, *args, train=True,
+                                                   mutable=["batch_stats"], **kw))(variables)
     model = load_jax_variables(PointConvFormer_Classification(
         _cls_cfg(Config, get_default_configs)), variables)
     with torch.no_grad():

@@ -137,7 +137,8 @@ def test_tiny_backbone_features_match_pcf_tpu(tiny_scene):
     jmodel, _ = jzoo.PCF_Tiny(0.1)
     args = (jb.feats, list(jb.points), list(jb.edges_self), list(jb.edges_forward),
             list(jb.norms))
-    variables = jmodel.init(jax.random.PRNGKey(0), *args, masks=list(jb.masks), train=False)
+    variables = jax.jit(lambda k: jmodel.init(k, *args, masks=list(jb.masks), train=False))(
+        jax.random.PRNGKey(0))
     want = jax.jit(lambda v: jmodel.apply(v, *args, masks=list(jb.masks), train=False))(
         variables)
     model, _ = tzoo.PCF_Tiny(0.1)

@@ -1,5 +1,6 @@
 """One rank of a torch.distributed gloo group on the CPU, for the port's
-data-parallel tests (tests/test_torch_mesh.py, tests/test_torch_trainer.py).
+data-parallel and spatial tests (tests/test_torch_mesh.py,
+tests/test_torch_trainer.py, tests/test_torch_spatial.py).
 It imports pcf_torch and never jax, so that a rank starts in a few seconds.
 
     python tests/torch_dist_worker.py JOB RANK WORLD PORT IN OUT
@@ -8,7 +9,8 @@ Sets torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT) for a group on 127.0.0.1:PORT, reads the job's inputs from IN
 (torch.save), runs JOB and torch.saves its result to OUT. `spawn` starts
 the ranks and kills them at a deadline, so that a hung rendezvous fails its
-test instead of stalling the suite.
+test instead of stalling the suite; `start` starts them and returns at once,
+so that a test computes its references while the ranks run.
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ def spawn(job: str, world: int, payload, tmp_path, timeout: float = 240.0) -> li
     """Run `job` on `world` ranks; each rank's result, in rank order. Raises
     when a rank fails or when the ranks have not all ended by `timeout`
     seconds (then every rank is killed)."""
+    return start(job, world, payload, tmp_path, timeout)()
+
+
+def start(job: str, world: int, payload, tmp_path, timeout: float = 240.0):
+    """Start `job` on `world` ranks; returns wait(), which gives spawn's
+    result (the deadline counts from now)."""
     import torch
 
     inp = os.path.join(str(tmp_path), f"{job}_in.pt")
@@ -46,26 +54,31 @@ def spawn(job: str, world: int, payload, tmp_path, timeout: float = 240.0) -> li
                                str(world), port, inp, outs[r]], env=env, stdout=logs[r],
                               stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.time() + timeout
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.time(), 0.1))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        hung = [p for p in procs if p.poll() is None]
-        for p in hung:
-            p.kill()
-            p.wait()
-        for f in logs:
-            f.close()
-    text = [open(f.name).read() for f in logs]
-    if hung:
-        raise TimeoutError(f"{job}: {len(hung)} of {world} ranks still running after "
-                           f"{timeout} s, killed\n" + "\n".join(t[-3000:] for t in text))
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            raise RuntimeError(f"{job}: rank {r} exited with {p.returncode}\n{text[r][-6000:]}")
-    return [torch.load(o, weights_only=False) for o in outs]
+
+    def wait() -> list:
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.time(), 0.1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            hung = [p for p in procs if p.poll() is None]
+            for p in hung:
+                p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        text = [open(f.name).read() for f in logs]
+        if hung:
+            raise TimeoutError(f"{job}: {len(hung)} of {world} ranks still running after "
+                               f"{timeout} s, killed\n" + "\n".join(t[-3000:] for t in text))
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"{job}: rank {r} exited with {p.returncode}\n"
+                                   f"{text[r][-6000:]}")
+        return [torch.load(o, weights_only=False) for o in outs]
+
+    return wait
 
 
 def smooth_relus():
@@ -79,14 +92,21 @@ def smooth_relus():
         negative_slope * x + (1 - negative_slope) * softplus(x))
 
 
-def _state(cfg, variables):
+def _state(cfg, variables, iter_per_epoch=5):
     from pcf_torch.convert import load_jax_variables
     from pcf_torch.entry import build
     from pcf_torch.train.state import create_train_state, make_optimizer
 
     model = load_jax_variables(build(cfg, device="cpu"), variables)
-    tx, _ = make_optimizer(cfg, 5)
+    tx, _ = make_optimizer(cfg, iter_per_epoch)
     return create_train_state(model, tx)
+
+
+def _after(state, metrics) -> dict:
+    """A train step's metrics, gradients, and the model's state_dict after it."""
+    return dict(metrics={k: v.clone() for k, v in metrics.items()},
+                grads={k: q.grad.clone() for k, q in state.model.named_parameters()},
+                state={k: v.clone() for k, v in state.model.state_dict().items()})
 
 
 def job_steps(rank: int, world: int, p: dict) -> dict:
@@ -157,7 +177,78 @@ def job_main(rank: int, world: int, p: dict) -> dict:
     return out
 
 
-JOBS = {"steps": job_steps, "main": job_main}
+def job_spatial(rank: int, world: int, p: dict) -> dict:
+    """The spatial steps of the port (parallel/spatial.py) on a 1-D mesh of
+    `world` ranks and a (2, world // 2) mesh. The eval step of each of
+    p["evals"]'s (cfg, variables) on p["batch"], and of p["kernel_cfg"]'s
+    model seeded with 0 (the kernels' route): the full logits. Then, every
+    ReLU smooth: one train step of p["train_cfg"] on p["batch"] over the 1-D
+    mesh, one over the 2-D mesh (batch p["batches2"][data index]), and the
+    data-parallel step of p["dp_cfg"] (SyncBN) over this rank's data
+    subgroup on the same two batches: the metrics and the state after each."""
+    import torch.distributed as dist
+
+    from pcf_torch.entry import build
+    from pcf_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d, make_train_step
+    from pcf_torch.parallel.spatial import make_spatial_eval_step, make_spatial_train_step
+
+    dist.init_process_group("gloo")
+    mesh, mesh2 = make_mesh(world), make_mesh_2d(2, world // 2)
+    out = {"eval": {}}
+    for name, (cfg, variables) in p["evals"].items():
+        out["eval"][name] = make_spatial_eval_step(cfg, mesh)(_state(cfg, variables), p["batch"])
+    kcfg = p["kernel_cfg"]
+    out["kernel_eval"] = make_spatial_eval_step(kcfg, mesh)(build(kcfg, device="cpu", seed=0),
+                                                            p["batch"])
+
+    smooth_relus()
+    cfg, variables, seed = p["train_cfg"], p["variables"], p["seed"]
+    state, m = make_spatial_train_step(cfg, mesh)(_state(cfg, variables, 10), p["batch"], seed)
+    out["train"] = _after(state, m)
+    d = rank // (world // 2)
+    state, m = make_spatial_train_step(cfg, mesh2)(_state(cfg, variables, 10),
+                                                   p["batches2"][d], seed)
+    out["train2d"] = _after(state, m)
+    dp = Mesh(mesh2.data, mesh2.data, 2, d, mesh.device, (2,))
+    state, m = make_train_step(p["dp_cfg"], dp)(_state(p["dp_cfg"], variables, 10),
+                                                p["batches2"][d], seed)
+    out["dp"] = _after(state, m)
+    dist.destroy_process_group()
+    return out
+
+
+def job_spatial_main(rank: int, world: int, p: dict) -> dict:
+    """trainer.main under spatial_train on this rank: what job_main gives,
+    and every batch its spatial train steps were handed and their losses."""
+    import torch.distributed as dist
+
+    import pcf_torch.parallel.spatial as spatial
+    from pcf_torch.train import trainer
+
+    make = spatial.make_spatial_train_step
+    seen = {"batches": [], "losses": []}
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch, seed):
+            seen["batches"].append([t.clone() for t in batch.tensors()])
+            state, metrics = step(state, batch, seed)
+            seen["losses"].append(float(metrics["loss"]))
+            return state, metrics
+
+        return run
+
+    spatial.make_spatial_train_step = recording
+    state = trainer.main(p["cfg"].copy(), device="cpu")
+    out = dict(seen, steps=state.step,
+               state={k: v.clone() for k, v in state.model.state_dict().items()})
+    dist.destroy_process_group()
+    return out
+
+
+JOBS = {"steps": job_steps, "main": job_main, "spatial": job_spatial,
+        "spatial_main": job_spatial_main}
 
 
 def main() -> int:

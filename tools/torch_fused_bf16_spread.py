@@ -21,8 +21,17 @@ kernels' toolchain, as chip_smoke.py does.
 Run i trains from the weights of cfg.manual_seed = seed0 + i (seed0 1 by
 default, phase 13's own seed); each scene's line names its run's seed.
 
+The per-layer mode (--layers SEED SCENE [SEED SCENE ...]) trains once from
+each SEED and, for its validation scene SCENE (0-based), holds each of the
+bf16 fused_eval forward's E calls, layer by layer, against E's plain version
+on the same inputs and against that plain version in float64 (every
+floating-point input cast up); and compares the outputs of E's forward and
+of the plain version's forward, run end to end, at each layer: where the
+gap between their logits enters.
+
 Usage (from the repository root):
 python3 tools/torch_fused_bf16_spread.py [runs] [seed0]
+python3 tools/torch_fused_bf16_spread.py --layers 4 2 6 0
 """
 
 from __future__ import annotations
@@ -88,6 +97,66 @@ def pcf_tpu_rounding(feat_table, geo_table, edges, center_xyz, center_norm, wn, 
             None if short is None else short.to(feat_table.dtype))
 
 
+def _float64(x):
+    """x with every floating-point tensor, also inside lists and tuples, in
+    float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, (list, tuple)):
+        return type(x)(_float64(v) for v in x)
+    return x
+
+
+def _rel(a, b, scale) -> float:
+    return ((a.double() - b.double()).abs().max() / scale).item()
+
+
+def layer_report(model, batch, label):
+    """The per-layer mode's lines for one scene (see the module)."""
+    import pcf_torch.nn.fused_eval as fused_eval_mod
+    from pcf_torch.ops.kernels.layer_eval import fused_layer_eval, fused_layer_eval_plain
+
+    runs = {}
+    kept = fused_eval_mod.fused_layer_eval
+    try:
+        for name, fn in (("kernel", fused_layer_eval), ("plain", fused_layer_eval_plain)):
+            calls = []
+
+            def recorded(*a, fn=fn, calls=calls, **kw):
+                out = fn(*a, **kw)
+                calls.append((cs.snapshot(a), kw, out[0].detach().clone()))
+                return out
+
+            fused_eval_mod.fused_layer_eval = recorded
+            with torch.no_grad():
+                logits = model.forward_batch(batch)
+            runs[name] = (calls, logits[batch.masks[0]].float())
+    finally:
+        fused_eval_mod.fused_layer_eval = kept
+    worst = 0.0
+    for i, ((a, kw, out), (_, _, plain_out)) in enumerate(zip(*(runs[k][0] for k in runs))):
+        with torch.no_grad():
+            plain = fused_layer_eval_plain(*a, **kw)[0]
+            exact = fused_layer_eval_plain(*_float64(a), **kw)[0]
+        scale = exact.abs().max().item()
+        e_p, e_x, p_x = _rel(out, plain, scale), _rel(out, exact, scale), _rel(plain, exact, scale)
+        worst = max(worst, e_p)
+        drift = ((out.double() - plain_out.double()).pow(2).mean().sqrt()
+                 / plain_out.double().pow(2).mean().sqrt()).item()
+        cs.log(f"[layers] {label} E call {i}: M {out.shape[0]} O {out.shape[1]} Cx {kw['Cx']}"
+               f"{' strided' if kw.get('strided') else ''}: max abs err / float64 scale "
+               f"({scale:.3e}): E against its plain version {e_p:.3e} (tolerance "
+               f"{cs.BF16_REL}), E against float64 {e_x:.3e}, plain against float64 "
+               f"{p_x:.3e}; the two forwards' outputs here, RMS relative {drift:.3e}")
+    k, p = runs["kernel"][1], runs["plain"][1]
+    cs.log(f"[layers] {label}: {len(runs['kernel'][0])} E calls, worst E against its plain "
+           f"version {worst:.3e} of the scale (tolerance {cs.BF16_REL}): "
+           f"{'a kernel fault' if worst > cs.BF16_REL else 'no kernel fault'}; the two "
+           f"forwards' logits RMS {(k - p).pow(2).mean().sqrt().item():.4e}, max "
+           f"{(k - p).abs().max().item():.3e} (scale {p.abs().max().item():.3e})")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_fused_bf16_spread: this script needs a card", file=sys.stderr)
@@ -100,9 +169,16 @@ def main() -> int:
     from pcf_torch.ops.kernels.window_resolve import window_resolve, window_resolve_flat
     from pcf_torch.ops.kernels.window_scatter import window_scatter
 
-    runs = int(sys.argv[1]) if len(sys.argv) > 1 else 3
-    seed0 = int(sys.argv[2]) if len(sys.argv) > 2 else 1
-    seed = {"now": seed0}
+    targets = {}  # per-layer mode: seed -> the scene to report
+    if len(sys.argv) > 1 and sys.argv[1] == "--layers":
+        pairs = [int(v) for v in sys.argv[2:]]
+        targets = dict(zip(pairs[::2], pairs[1::2]))
+        seeds = list(targets)
+    else:
+        runs = int(sys.argv[1]) if len(sys.argv) > 1 else 3
+        seed0 = int(sys.argv[2]) if len(sys.argv) > 2 else 1
+        seeds = [seed0 + i for i in range(runs)]
+    seed = {"now": seeds[0], "scene": 0}
     config = cs.phase13_config
 
     def seeded_config(*a, **kw):
@@ -139,6 +215,8 @@ def main() -> int:
             pending["kernel"] = v
             model, batch = last["model"], last["batch"]
             m0 = batch.masks[0]
+            if targets.get(seed["now"]) == seed["scene"]:
+                layer_report(model, batch, f"seed {seed['now']} scene {seed['scene']}")
             kept = fused_eval_mod.fused_layer_eval
             try:
                 for name, fn in versions.items():
@@ -150,9 +228,10 @@ def main() -> int:
         else:
             for k in ratios:
                 ratios[k].append(pending[k] / v)
-            cs.log(f"[spread] seed {seed['now']} scene: RMS ratio " + ", ".join(
+            cs.log(f"[spread] seed {seed['now']} scene {seed['scene']}: RMS ratio " + ", ".join(
                 f"{k} {ratios[k][-1]:.3f}" for k in ratios) + f" (standard bf16 RMS {v:.4e})")
             pending.clear()
+            seed["scene"] += 1
         return v
 
     gate = cs.FUSED_BF16_WITNESS
@@ -173,8 +252,8 @@ def main() -> int:
     wrappers = dict(window_resolve=window_resolve, pcf_conv_linear=pcf_conv_linear,
                     pconv_pe_conv_linear=pconv_pe_conv_linear, window_scatter=window_scatter,
                     window_resolve_flat=window_resolve_flat, fused_layer_eval=fused_layer_eval)
-    for i in range(runs):
-        seed["now"] = seed0 + i
+    for i, s in enumerate(seeds):
+        seed.update(now=s, scene=0)
         t = time.time()
         try:
             cs.entry_phase(wrappers, smi)
