@@ -2,18 +2,23 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, before the last line is printed):
+Phases (any failure exits non-zero, before the last line is printed; each
+ends with a line `[time] phase N: S s`):
   1 device   the card's name, count, and nvidia-smi name / power limit;
-  2 build    nvcc builds every kernel from pcf_torch/csrc; ptxas registers,
-             static shared memory and spills per kernel (the fused kernels'
-             dynamic shared memory depends on the widths: phase 4 prints it);
+  2 build    nvcc builds every kernel from pcf_torch/csrc, one process per
+             source (layer_eval.cu as 8 translation units and
+             pcf_conv_linear.cu as 5, kernel instantiations split over
+             them: build.PARTS), all at once, each source's seconds printed;
+             ptxas registers, static shared memory and spills per kernel
+             (the fused kernels' dynamic shared memory depends on the
+             widths: phase 4 prints it);
   3 slice    the flagship PointConvFormer_Segmentation eval forward on the
              bench workload (2 scenes x 20000 points, windowed, the config
              whose conv layers all run the fused kernels), in float32 and
              bfloat16: BN calibrated by one train-mode pass, launch counts
              reset just before one eval forward and read just after (each
-             kernel must have launched), then 15 timed repetitions per
-             dtype, the two dtypes in turns;
+             kernel must have launched), then FWD_REPS timed repetitions
+             per dtype, the two dtypes in turns;
   4 kernels  every kernel call that forward made, replayed on the same
              inputs against the kernel's plain PyTorch version: window_resolve
              bit-exact; the fused kernels in both index modes within
@@ -35,7 +40,7 @@ Phases (any failure exits non-zero, before the last line is printed):
              reset just before one step and read just after (A, B, C and D
              must each launch, and D once for every resolve whose table needs
              a gradient, counted in the step's autograd graph), then 2
-             warm-up and 10 timed steps per dtype, the dtypes in turns, and
+             warm-up and STEP_REPS timed steps per dtype, in turns, and
              the step's own peak memory; every loss must be finite; every
              window_resolve call of the counted step replayed bit-exact
              against its plain version, and timed beside its bound;
@@ -64,7 +69,7 @@ Phases (any failure exits non-zero, before the last line is printed):
              after (E once per conv layer, B and C never), the f32 logits
              against the standard forward's within the fold tolerance, the
              entry-size model on the card against the CPU, both fused; then
-             15 timed forwards per dtype after 2 warm-up, in turns with the
+             FWD_REPS timed forwards per dtype after 2 warm-up, in turns with the
              standard forward of the same dtype, and the forward's own peak
              memory;
  10 layer    E's launch shape per layer shape (as phase 4's, with the
@@ -89,7 +94,7 @@ Phases (any failure exits non-zero, before the last line is printed):
              of other scenes packed to the same signature, which must replay
              the same graph; one profiled replay must show each hand-written
              kernel by its CUDA symbol as many times as phases 3, 9 and 11
-             counted it; 15 replays after 2 warm-up in turns with the eager
+             counted it; FWD_REPS replays after 2 warm-up in turns with the eager
              forward, the device-busy share of the profiled replay, the
              capture's time and its pool's memory. Train (entry.build_training):
              3 captured and 3 eager f32 steps from the same weights, without
@@ -97,14 +102,15 @@ Phases (any failure exits non-zero, before the last line is printed):
              within GRAPH_LOSS_RTOL, parameters within phase 8's tolerance;
              the bf16 L copies and BN folds after replays against a fresh
              model loaded with the trained weights; per dtype the replay's
-             kernels (phase 6's counts) and 10 steps after 2 warm-up in turns
+             kernels (phase 6's counts) and STEP_REPS steps after 2 warm-up in turns
              with the eager step. Then `python3 -m pcf_torch.bench`'s line;
  13 entry    the user's entry points on the ScanNet-layout pipeline: synthetic
-             rooms (tools/make_synth_dataset.py, 64 train + 4 val, 15,000
-             points each) under pcf_tpu/configs/synth_flagship.yaml, built in
-             code (phase13_config: PCF_Normal at the flagship width, bf16,
-             windowed, pinned level caps); trainer.main for one epoch (16
-             steps), then again to two (it must resume from epoch 1), launch
+             rooms (tools/make_synth_dataset.py, 32 train + 4 val, 15,000
+             points each) under pcf_torch/configs/synth_flagship.json
+             (phase13_config: load_config with PERF.md section 4's overrides;
+             PCF_Normal at the flagship width, bf16, windowed, pinned level
+             caps); trainer.main for one epoch (8 steps), then again to two
+             (it must resume from epoch 1), launch
              counts from 0 over each (A, B, C and D must launch), split into
              eager runs and captures; every eager kernel call of the first
              run (its first train step and its validation's first call)
@@ -125,19 +131,20 @@ Phases (any failure exits non-zero, before the last line is printed):
              (FUSED_BF16_WITNESS), the fold on the trained weights in
              f32 at FOLD_TOL, replay ms and points/s per scene;
  14 pyramid  the device pyramid (data/post_knn.py) and voting on the card:
-             pcf_tpu/configs/post_knn_10cm.yaml built in code
-             (phase14_config: PCF_Normal at the flagship width, f32,
-             BATCH_SIZE 16, pinned level caps), 128 + 4 synthetic rooms
-             (8-step epochs). The loader's host s per batch for the host
+             pcf_torch/configs/post_knn_10cm.json (phase14_config: PCF_Normal
+             at the flagship width, f32, BATCH_SIZE 16, pinned level caps),
+             48 + 4 synthetic rooms (3-step epochs; phase 19 reads them
+             too), while phase 15's exports run beside it in processes of
+             their own. The loader's host s per batch for the host
              pyramid, post_knn and device_pyramid; one device_pyramid
              batch's pyramid built on the card (build_pyramid_packed, the
              post_knn loader's caps), each level's per-scene voxel counts
              equal to the host grid_subsampling's and its barycenters within
              PYRAMID_ATOL, no overflow; each of its 13 kNN calls captured and
              replayed (ms and distance entries), against the port's kNN on
-             the CPU scene by scene (distances within KNN_DIST_REL of the
-             scale, neighbour sets equal where not tied at k) and
-             KNN_SAMPLED queries against float64, and timed restricted to
+             the CPU scene by scene for KNN_CPU_SCENES scenes (distances
+             within KNN_DIST_REL of the scale, neighbour sets equal where not
+             tied at k) and KNN_SAMPLED queries against float64, and timed restricted to
              each scene's own rows; trainer.main under post_knn, then
              device_pyramid: B and C launched, A, D and E never, every eager
              B and C call against its plain version, finite losses, the
@@ -149,15 +156,17 @@ Phases (any failure exits non-zero, before the last line is printed):
              under device_pyramid (replay ms per scene, scene 0's logits
              against the CPU at MODEL_TOL); eval.voting.evaluate_voting under
              device_pyramid, PYRAMID_VOTES rotations: every raw point voted,
-             scene 0's probabilities against the CPU's within VOTE_ATOL, the
-             wall, device+dispatch and host job times, captures per caps key.
+             the wall, device+dispatch and host job times, captures per caps
+             key; scene 0 at PYRAMID_CPU_VOTES rotation on the card against
+             the CPU: probabilities within VOTE_ATOL.
  15 serve    the serving path (pcf_torch/serve) under phase 13's configuration
              (synth_flagship, bf16, windowed, B and C on every conv layer) with
              level caps pinned to 4 synthetic validation rooms of 15,000
              points (one bucket), the weights of phase 13's checkpoint (seeded,
              BN calibrated once, when the phase runs alone): `python -m
-             pcf_torch.serve.export --platforms cuda,cpu` as configured and
-             with fused_eval, two processes at once (seconds per program, the
+             pcf_torch.serve.export` as configured (--platforms cuda,cpu)
+             and with fused_eval (cuda), two processes started after phase
+             13, beside phase 14 (serve_start; seconds per program, the
              artifacts' files and sizes); the serving CLI `python -m
              pcf_torch.serve.predict` in a fresh process on the 4 rooms (a
              label file per room, its ms split into host, device, copy back
@@ -219,6 +228,24 @@ Phases (any failure exits non-zero, before the last line is printed):
              (c) trainer.main under spatial_train in a torchrun-style group
              of one NCCL rank on MESH_ROOMS rooms: 2 steps, B and C launched,
              A, D and E never, its checkpoint equal to its state.
+ 19 configs  the shipped configurations no earlier phase runs
+             (CONFIG_NAMES: pcf_10cm, pcf_pallas_10cm, pcf_10cm_lite, pcf_5cm,
+             pcf_2cm_ptf2), each from pcf_torch/configs/<name>.json at its own
+             widths, BATCH_SIZE, caps, mix3D, accum_iter and drop_path_rate,
+             through the trainer's CLI (trainer.cli with the argv `python -m`
+             passes; --set only for the data and experiment paths and
+             total_epoches=1, eval_freq=1, save_freq=1) on phase 14's rooms
+             (2 steps; pcf_2cm_ptf2 5 micro-steps, one optimizer update; 2
+             validation rooms), then eval.simple's CLI on its checkpoint:
+             finite losses, the checkpoint equal to main's final state bit
+             for bit, the optimizer's steps accum_iter implies, scene 0's
+             logits on the card against the CPU port at MODEL_TOL, launch
+             counts from 0 over each run that follow the switches (B and C
+             for pcf_pallas_10cm, every eager call against its plain version;
+             no port kernel for the others), the card's memory reserved
+             after it within 1 GiB of before; CONFIG_MODULE_RUN once more
+             through `python -m pcf_torch.train.trainer` in a process of its
+             own; yaml never imported.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 The script needs a CUDA card and the repository beside it. `--profile` adds
 a torch.profiler breakdown of one eval forward per dtype to phases 3 and 9
@@ -252,6 +279,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 # phase 3: calls a batch when timing the custom operators' dispatch
 DISPATCH_CALLS = 200
 # f32 operands round to bf16 partials at most once per (c, w) term: within
@@ -271,10 +299,11 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # above the H100's highest SM clock (1.98 GHz): a sleep of n cycles lasts at
 # least n / CLOCK_HZ seconds
 CLOCK_HZ = 2.0e9
-# eval forwards timed per dtype, after warm-up
-FWD_WARMUP, FWD_REPS = 2, 15
-# train steps timed per dtype, after warm-up
-STEP_WARMUP, STEP_REPS = 2, 10
+# eval forwards timed per dtype, after warm-up (few: the whole script keeps
+# to a time budget, PERF.md section 4)
+FWD_WARMUP, FWD_REPS = 2, 5
+# train steps timed per dtype, after warm-up (few, as FWD_REPS)
+STEP_WARMUP, STEP_REPS = 2, 3
 # window_scatter against its plain version: its f32 sums run in another
 # order (1e-5 of the output's scale); in bf16 the f32 sums may round to
 # neighbouring bf16 values, one step being 2^-8 to 2^-7 of the value
@@ -1158,29 +1187,36 @@ def bench_phase():
     assert step.graphs.captures == captures, "the bench captured its step anew"
 
 
-# pcf_tpu/configs/synth_flagship.yaml, key for key, built in code (the card's
-# machine has no yaml), without compile_cache_dir (pcf_tpu's JAX cache)
-SYNTH_FLAGSHIP = dict(
-    BATCH_NORM=True, BATCH_SIZE=4, USE_XYZ=True, USE_PE=True, USE_WEIGHT=True, manual_seed=1,
-    print_freq=5, eval_freq=3, save_freq=3, MAX_POINTS_NUM=60000, K_self=[16] * 5,
-    K_forward=[16] * 5, K_propagate=[16] * 5, point_dim=3, total_epoches=12, num_level=5,
-    grid_size=[0.1, 0.2, 0.4, 0.8, 1.6], base_dim=64, feat_dim=[64, 128, 192, 256, 384],
-    mid_dim=[16] * 5, mid_dim_back=1, guided_level=0, num_heads=8, resblocks=[0, 2, 4, 6, 6],
-    resblocks_back=[0] * 5, train_data_path="./data/synth/train/*.npz",
-    val_data_path="./data/synth/val/*.npz", test_data_path="./data/synth/val/*.npz",
-    optimizer="AdamW", adamw_decay=0.05, learning_rate=0.01, gamma=0.5, label_smoothing=0.2,
-    scheduler="MultiStepWithWarmup", milestones=[8, 10], decay_rate=0.0001, ignore_label=-100,
-    drop_path_rate=0.0, dropout_rate=0.0, dropout_fc=0.0, scheduler_update="step",
-    warmup="linear", warmup_epochs=1, warmup_ratio=1.0e-05, num_classes=8,
-    classes=["wall", "floor", "ceiling", "table", "chair", "sofa", "cabinet", "clutter"],
-    bucket_multiple=4096, USE_PALLAS_KERNEL=False, compute_dtype="bfloat16", window_gather=True,
-    model_name="PCF_TPU_synth_flagship", experiment_dir="./experiments/synth_flagship",
-    pin_level_caps=True, level_caps_sample=8, level_caps_margin=1.15)
+def shipped_config(name: str) -> str:
+    """The path of the port's copy of a shipped configuration (JSON, read
+    without yaml: the card's machine has none)."""
+    return os.path.join(HERE, "pcf_torch", "configs", f"{name}.json")
+
+
+def data_overrides(data_dir: str, exp_dir: str) -> list:
+    """--set overrides that put a run's data and experiment under a
+    directory of its own: tools/make_synth_dataset.py's layout."""
+    return [f"train_data_path={data_dir}/train/*.npz", f"val_data_path={data_dir}/val/*.npz",
+            f"test_data_path={data_dir}/val/*.npz", f"experiment_dir={exp_dir}"]
+
+
+def synth_rooms(out: str, train: int, val: int, points: int = 15000) -> float:
+    """tools/make_synth_dataset.py's rooms (out/train, out/val); returns the
+    seconds it took."""
+    t0 = time.time()
+    subprocess.run([sys.executable, os.path.join(HERE, "tools", "make_synth_dataset.py"),
+                    "--out", out, "--train", str(train), "--val", str(val),
+                    "--points", str(points)], check=True, capture_output=True)
+    return time.time() - t0
+
+
+# tools/make_synth_dataset.py's classes (synth_flagship.json's), labels 0-7
+SYNTH_CLASSES = ["wall", "floor", "ceiling", "table", "chair", "sofa", "cabinet", "clutter"]
 # phase 13's rooms: tools/make_synth_dataset.py at its default 15,000 points a
-# room; 64 training rooms make a 16-step epoch at BATCH_SIZE 4, long enough
-# that the batches packed ahead while the first step captures its graph
-# (the loader's prefetch queue) run out and main's rate is its steady one
-ENTRY_TRAIN_ROOMS, ENTRY_VAL_ROOMS, ENTRY_ROOM_POINTS = 64, 4, 15000
+# room; 32 training rooms make an 8-step epoch at BATCH_SIZE 4, enough that
+# the batches packed ahead while the first step captures its graph (the
+# loader's prefetch queue) run out before the last steps
+ENTRY_TRAIN_ROOMS, ENTRY_VAL_ROOMS, ENTRY_ROOM_POINTS = 32, 4, 15000
 # phase 13: main's s/it is timed from this step on (0-based: the first is
 # the eager run and the capture, the second may read a batch packed ahead)
 ENTRY_STEADY_FROM = 2
@@ -1207,22 +1243,16 @@ FUSED_BF16_WITNESS = 2.0
 
 
 def phase13_config(data_dir: str, exp_dir: str):
-    """Phase 13's configuration: SYNTH_FLAGSHIP with the defaults that
-    pcf_torch.config.load_config fills, and these overrides (PERF.md section
-    4): the fused conv kernels B and C on every conv layer, as phases 3-12
-    run them; the data and the experiment under the phase's temporary
-    directory; one epoch; validation and a checkpoint every epoch."""
-    from pcf_torch.config import Config, get_default_configs, get_default_training_cfgs
+    """Phase 13's configuration: pcf_torch/configs/synth_flagship.json as
+    load_config reads it, with these overrides (PERF.md section 4): the fused
+    conv kernels B and C on every conv layer, as phases 3-12 run them; the
+    data and the experiment under the phase's temporary directory; one
+    epoch; validation and a checkpoint every epoch."""
+    from pcf_torch.config import load_config
 
-    cfg = Config.from_dict(SYNTH_FLAGSHIP)
-    cfg = get_default_training_cfgs(get_default_configs(cfg, cfg.num_level, cfg.base_dim))
-    cfg.config = "pcf_tpu/configs/synth_flagship.yaml"
-    cfg.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas",
-               train_data_path=os.path.join(data_dir, "train", "*.npz"),
-               val_data_path=os.path.join(data_dir, "val", "*.npz"),
-               test_data_path=os.path.join(data_dir, "val", "*.npz"),
-               experiment_dir=exp_dir, total_epoches=1, eval_freq=1, save_freq=1)
-    return cfg
+    return load_config(shipped_config("synth_flagship"), [
+        "USE_PALLAS_KERNEL=true", "fused_min_points=0", "resolve_impl=pallas",
+        *data_overrides(data_dir, exp_dir), "total_epoches=1", "eval_freq=1", "save_freq=1"])
 
 
 class EntryRecorder:
@@ -1411,14 +1441,9 @@ def entry_phase(wrappers, smi, device="cuda", keep_checkpoint=None):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as root:
         data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
-        t0 = time.time()
-        subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                                      "tools", "make_synth_dataset.py"),
-                        "--out", data, "--train", str(ENTRY_TRAIN_ROOMS),
-                        "--val", str(ENTRY_VAL_ROOMS), "--points", str(ENTRY_ROOM_POINTS)],
-                       check=True, capture_output=True)
+        secs = synth_rooms(data, ENTRY_TRAIN_ROOMS, ENTRY_VAL_ROOMS, ENTRY_ROOM_POINTS)
         log(f"[entry] {ENTRY_TRAIN_ROOMS} + {ENTRY_VAL_ROOMS} synthetic rooms written in "
-            f"{time.time() - t0:.1f} s; host pyramid: "
+            f"{secs:.1f} s; host pyramid: "
             f"{'native (pcf_torch/native, built by g++)' if use_native() else 'numpy/scipy'}")
         rec = EntryRecorder(wrappers)
         try:
@@ -1443,7 +1468,8 @@ def entry_phase(wrappers, smi, device="cuda", keep_checkpoint=None):
                     del recs
                     gc.collect()
                 calls, end = train.calls, rec.epoch_ends[ends]
-                assert len(calls) > ENTRY_STEADY_FROM + 8, f"{label}: {len(calls)} steps"
+                assert len(calls) == ENTRY_TRAIN_ROOMS // cfg.BATCH_SIZE, (
+                    f"{label}: {len(calls)} steps")
                 steady = calls[ENTRY_STEADY_FROM:]
                 s_it = (end - steady[0]["start"]) / len(steady)
                 s_per_it.append(s_it)
@@ -1634,35 +1660,18 @@ def entry_phase(wrappers, smi, device="cuda", keep_checkpoint=None):
         f"{unpinned_pool / 2**20:.1f} MiB, evaluate {eval_pool / 2**20:.1f} MiB")
 
 
-# pcf_tpu/configs/post_knn_10cm.yaml, key for key, built in code (the card's
-# machine has no yaml)
-POST_KNN_10CM = dict(
-    BATCH_NORM=True, BATCH_SIZE=16, NUM_WORKERS=0, USE_XYZ=True, USE_PE=True, USE_WEIGHT=True,
-    manual_seed=1, sync_bn=True, print_freq=5, eval_freq=5, save_freq=5, MAX_POINTS_NUM=550000,
-    K_forward=[16] * 5, K_propagate=[16] * 5, K_self=[16] * 5, point_dim=3, total_epoches=300,
-    num_level=5, grid_size=[0.1, 0.2, 0.4, 0.8, 1.6], base_dim=64,
-    feat_dim=[64, 128, 192, 256, 384], mid_dim=[16] * 5, mid_dim_back=1, guided_level=0,
-    num_heads=8, resblocks=[0, 2, 4, 6, 6], resblocks_back=[0] * 5,
-    train_data_path="./data/ScanNet_withNewNormal/train/*.pth",
-    val_data_path="./data/ScanNet_withNewNormal/val/*.pth",
-    test_data_path="./data/ScanNet_withNewNormal/test/*.pth", optimizer="AdamW",
-    adamw_decay=0.05, learning_rate=0.02, gamma=0.5, label_smoothing=0.2,
-    scheduler="MultiStepWithWarmup", milestones=[80, 140, 180, 220, 260], decay_rate=0.0001,
-    ignore_label=-100, drop_path_rate=0.0, dropout_rate=0.0, dropout_fc=0.0,
-    layer_norm_guidance=False, scheduler_update="step", warmup="linear", warmup_epochs=10,
-    warmup_ratio=1.0e-05, model_name="PCF_TPU_10cm_postknn", experiment_dir="./experiment_10cm/",
-    eval_path="./evaluation_10cm/", num_classes=20,
-    classes=["wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door", "window",
-             "bookshelf", "picture", "counter", "desk", "curtain", "refridgerator",
-             "shower curtain", "toilet", "sink", "bathtub", "otherfurniture"],
-    bucket_multiple=8192, USE_PALLAS_KERNEL=False,
-    _comment="10cm with on-device kNN after batching (reference Config_post_knn_10cm.yaml)",
-    post_knn=True)
 # phase 14's rooms: tools/make_synth_dataset.py at its 15,000 points a room;
-# 128 training rooms make an 8-step epoch at BATCH_SIZE 16
-PYRAMID_TRAIN_ROOMS, PYRAMID_VAL_ROOMS = 128, 4
-# phase 14: voting's rotations (pcf_tpu's default is 8; cut for time)
-PYRAMID_VOTES = 2
+# 48 training rooms make a 3-step epoch at BATCH_SIZE 16 (few: the time
+# budget)
+PYRAMID_TRAIN_ROOMS, PYRAMID_VAL_ROOMS = 48, 4
+# phase 14: voting's rotations (pcf_tpu's default is 8; cut for time); the
+# card against the CPU on scene 0 at PYRAMID_CPU_VOTES
+PYRAMID_VOTES, PYRAMID_CPU_VOTES = 2, 1
+# phase 14: the train and prepare replays timed after warm-up
+PYRAMID_REPLAY_WARMUP, PYRAMID_REPLAY_REPS = 1, 2
+# phase 14: the scenes of the checked batch whose kNN is run again on the CPU
+# (every scene is also in the float64 sample)
+KNN_CPU_SCENES = 4
 # phase 14 kNN, card against CPU: distances within KNN_DIST_REL of the call's
 # largest; a row's index set equal wherever its k-th and (k+1)-th distances
 # differ by more than KNN_TIE_REL (relative); KNN_SAMPLED queries a call
@@ -1677,27 +1686,20 @@ VOTE_ATOL = 1e-4
 
 
 def phase14_config(data_dir: str, exp_dir: str):
-    """Phase 14's configuration: POST_KNN_10CM with the defaults that
-    pcf_torch.config.load_config fills, and these overrides (PERF.md section
-    4): the fused conv kernels B and C on every conv layer; pinned level
-    caps (synth_flagship's sample and margin), so that an epoch has one
+    """Phase 14's configuration: pcf_torch/configs/post_knn_10cm.json as
+    load_config reads it, with these overrides (PERF.md section 4): the
+    fused conv kernels B and C on every conv layer; pinned level caps
+    (synth_flagship's sample and margin), so that an epoch has one
     signature; the data, the experiment and the evaluation under the
     phase's temporary directory; one epoch, validated and saved; the
     synthetic rooms' 8 classes."""
-    from pcf_torch.config import Config, get_default_configs, get_default_training_cfgs
+    from pcf_torch.config import load_config
 
-    cfg = Config.from_dict(POST_KNN_10CM)
-    cfg = get_default_training_cfgs(get_default_configs(cfg, cfg.num_level, cfg.base_dim))
-    cfg.config = "pcf_tpu/configs/post_knn_10cm.yaml"
-    cfg.update(USE_PALLAS_KERNEL=True, fused_min_points=0, pin_level_caps=True,
-               level_caps_sample=8, level_caps_margin=1.15,
-               train_data_path=os.path.join(data_dir, "train", "*.npz"),
-               val_data_path=os.path.join(data_dir, "val", "*.npz"),
-               test_data_path=os.path.join(data_dir, "val", "*.npz"),
-               experiment_dir=exp_dir, eval_path=os.path.join(exp_dir, "eval"),
-               total_epoches=1, eval_freq=1, save_freq=1,
-               num_classes=SYNTH_FLAGSHIP["num_classes"], classes=SYNTH_FLAGSHIP["classes"])
-    return cfg
+    return load_config(shipped_config("post_knn_10cm"), [
+        "USE_PALLAS_KERNEL=true", "fused_min_points=0", "pin_level_caps=true",
+        "level_caps_sample=8", "level_caps_margin=1.15", *data_overrides(data_dir, exp_dir),
+        f"eval_path={exp_dir}/eval", "total_epoches=1", "eval_freq=1", "save_freq=1",
+        "num_classes=8", f"classes={json.dumps(SYNTH_CLASSES)}"])
 
 
 class PrepareRecorder:
@@ -1798,8 +1800,9 @@ def knn_calls(batch):
 def knn_check(batch, k, rng):
     """Phase 14b: every kNN call of `batch` (on the card) in one CUDA graph
     each, replayed and timed, its result against the port's kNN on the CPU
-    run scene by scene on the same points, and KNN_SAMPLED queries against a
-    float64 brute force; each call also timed restricted to its scenes' own
+    run scene by scene on the same points (the first KNN_CPU_SCENES
+    scenes), and KNN_SAMPLED queries of every scene against a float64 brute
+    force; each call also timed restricted to its scenes' own
     rows (the per-scene split). Returns (total replay ms, total own-scene
     ms, total distance entries)."""
     from pcf_torch.ops.knn import knn
@@ -1815,14 +1818,15 @@ def knn_check(batch, k, rng):
         qm = batch.masks[ql].cpu().numpy()
         qbn, rbn, rmn = qb.cpu().numpy(), rb.cpu().numpy(), rm.cpu().numpy()
         qp, rp = q.cpu(), r.cpu()
-        scenes = np.unique(qbn[qm])
+        scenes = np.unique(qbn[qm])[:KNN_CPU_SCENES]
         scale = float(dist[qm].max())
-        own = []
+        own = [(torch.from_numpy(np.nonzero(qm & (qbn == sc))[0]).to(q.device),
+                torch.from_numpy(np.nonzero(rmn & (rbn == sc))[0]).to(q.device))
+               for sc in np.unique(qbn[qm])]
         worst = checked = tied = 0
         for sc in scenes:
             rows = np.nonzero(qm & (qbn == sc))[0]
             refs = np.nonzero(rmn & (rbn == sc))[0]
-            own.append((torch.from_numpy(rows).to(q.device), torch.from_numpy(refs).to(q.device)))
             ci, cd = knn(qp[rows], rp[refs], k + 1, return_dist=True)
             ci, cd = refs[ci.numpy()], cd.numpy()
             worst = max(worst, float(np.abs(dist[rows] - cd[:, :k]).max()))
@@ -1870,10 +1874,11 @@ def knn_check(batch, k, rng):
     return tot_ms, tot_own, tot_entries
 
 
-def pyramid_phase(wrappers, smi, device="cuda"):
+def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
     """Phase 14: the device pyramid and voting on the card (see the module
     docstring); the entry points take their default device, the checks run
-    on `device`."""
+    on `device`. `rooms`: synth_rooms' PYRAMID_TRAIN_ROOMS +
+    PYRAMID_VAL_ROOMS rooms, else made here."""
     from pcf_torch.data import post_knn as post_knn_mod
     from pcf_torch.data.scannet import getdataLoaders
     from pcf_torch.entry import build
@@ -1904,15 +1909,12 @@ def pyramid_phase(wrappers, smi, device="cuda"):
         return counts, captured
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pyramid_") as root:
-        data = os.path.join(root, "data")
-        t0 = time.time()
-        subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                                      "tools", "make_synth_dataset.py"),
-                        "--out", data, "--train", str(PYRAMID_TRAIN_ROOMS),
-                        "--val", str(PYRAMID_VAL_ROOMS), "--points", str(ENTRY_ROOM_POINTS)],
-                       check=True, capture_output=True)
-        log(f"[pyramid] {PYRAMID_TRAIN_ROOMS} + {PYRAMID_VAL_ROOMS} synthetic rooms written in "
-            f"{time.time() - t0:.1f} s")
+        data = rooms
+        if data is None:
+            data = os.path.join(root, "data")
+            secs = synth_rooms(data, PYRAMID_TRAIN_ROOMS, PYRAMID_VAL_ROOMS)
+            log(f"[pyramid] {PYRAMID_TRAIN_ROOMS} + {PYRAMID_VAL_ROOMS} synthetic rooms "
+                f"written in {secs:.1f} s")
 
         # -- e: the loader alone, one epoch per mode --------------------------
         modes = {"host pyramid": dict(post_knn=False),
@@ -2044,10 +2046,10 @@ def pyramid_phase(wrappers, smi, device="cuda"):
                 end = rec.epoch_ends[-1]
                 s_it = (end - steady[0]["start"]) / len(steady)
                 batch, raw = calls[-1]["batch"], prep.calls[len(calls) - 1]["batch"]
-                step_s = host_times(lambda: train(state, batch, 0), ENTRY_REPLAY_WARMUP,
-                                    ENTRY_REPLAY_REPS)
-                prep_s = host_times(lambda: prep(raw, device), ENTRY_REPLAY_WARMUP,
-                                    ENTRY_REPLAY_REPS)
+                step_s = host_times(lambda: train(state, batch, 0), PYRAMID_REPLAY_WARMUP,
+                                    PYRAMID_REPLAY_REPS)
+                prep_s = host_times(lambda: prep(raw, device), PYRAMID_REPLAY_WARMUP,
+                                    PYRAMID_REPLAY_REPS)
                 valid = [int(m.sum()) for m in batch.masks]
                 log(f"[pyramid] {label}: {wall:.1f} s in all, {len(calls)} steps, losses "
                     f"{losses}, checkpoint of epoch {epoch} equal to main's final state bit for "
@@ -2057,7 +2059,7 @@ def pyramid_phase(wrappers, smi, device="cuda"):
                     f"{ENTRY_STEADY_FROM + 1}-{len(calls)} against the train replay median "
                     f"{statistics.median(step_s):.4f} s and the prepare replay median "
                     f"{statistics.median(prep_s):.4f} s (each {len(step_s)} after "
-                    f"{ENTRY_REPLAY_WARMUP} warm-up, host clock to a synchronize); s from each "
+                    f"{PYRAMID_REPLAY_WARMUP} warm-up, host clock to a synchronize); s from each "
                     f"step's start to the next's "
                     f"{[round(b['start'] - a['start'], 4) for a, b in zip(calls, calls[1:])]}; "
                     f"train graphs: {graph_pools(train)}")
@@ -2134,11 +2136,16 @@ def pyramid_phase(wrappers, smi, device="cuda"):
                 # a raw point without a vote would keep a row of zeros
                 assert np.allclose(p.sum(-1), 1.0, atol=1e-4), f"{f}: a point without a vote"
             lap("voting")
-            cfg_c = cfg_v.copy()
-            cfg_c.eval_path = os.path.join(root, "eval_voting_cpu")
-            evaluate_voting(cfg_c, state=model_cpu, vote_num=PYRAMID_VOTES, max_scenes=1)
+            # scene 0 at PYRAMID_CPU_VOTES, on the card and on the CPU
+            one = {}
+            for where, kw in (("card", dict(pretrain_path=os.path.join(exp, "model"))),
+                              ("cpu", dict(state=model_cpu))):
+                cfg_c = cfg_v.copy()
+                cfg_c.eval_path = os.path.join(root, f"eval_voting_{where}")
+                evaluate_voting(cfg_c, vote_num=PYRAMID_CPU_VOTES, max_scenes=1, **kw)
+                one[where] = cfg_c.eval_path
             name = sorted(probs)[0]
-            got, want = probs[name], np.load(os.path.join(cfg_c.eval_path, name))
+            got, want = (np.load(os.path.join(one[w], name)) for w in ("card", "cpu"))
             verr = float(np.abs(got - want).max())
             assert verr <= VOTE_ATOL, f"voting {name}: card against CPU {verr:.3e}"
             top2 = np.sort(want, -1)[:, -2:]
@@ -2147,7 +2154,8 @@ def pyramid_phase(wrappers, smi, device="cuda"):
                 f"voting {name}: labels differ off the near-ties")
             log(f"[pyramid] evaluate_voting ({PYRAMID_VOTES} votes, cut from 8): mIoU "
                 f"{vmiou:.4f}, {vwall:.1f} s from the call; every raw point voted in all "
-                f"{len(probs)} scenes; {name} against the CPU: max abs err {verr:.3e} "
+                f"{len(probs)} scenes; {name} at {PYRAMID_CPU_VOTES} vote(s), the card "
+                f"against the CPU: max abs err {verr:.3e} "
                 f"({int((~sure).sum())} near-ties of {sure.shape[0]} points); {vlog}")
             summary["voting"] = vlog
             lap("voting on the CPU")
@@ -2222,77 +2230,93 @@ def op_recorder():
     return OpRecorder()
 
 
-def serve_phase(wrappers, smi, pretrain=None, device="cuda"):
-    """Phase 15: the serving path on the card (see the module docstring),
-    the programs served on `device`. `pretrain` is a checkpoint directory of
-    phase 15's configuration (phase 13's); without one, seeded weights with
-    BN calibrated once are saved."""
+def serve_start(pretrain=None, device="cuda") -> dict:
+    """Phase 15's first half, which the script starts before phase 14 so
+    that the exports run beside it: SERVE_ROOMS synthetic rooms and phase
+    15's configuration (phase 13's, its level caps pinned to those rooms:
+    one bucket) in a temporary directory of its own, and `python -m
+    pcf_torch.serve.export` started for the standard program (cuda and cpu:
+    phase 15 holds the card's against the CPU's) and the fused_eval one
+    (cuda: no gate reads its CPU program), two processes at once.
+    `pretrain` is a checkpoint directory of that configuration (phase 13's);
+    without one, seeded weights with BN calibrated once are saved."""
     from pcf_torch.core.batching import pack_scenes
     from pcf_torch.data.scannet import ScanNetDataset, estimate_level_caps
+    from pcf_torch.entry import build
+    from pcf_torch.train.checkpoint import CheckpointManager
+    from pcf_torch.train.state import create_train_state, make_optimizer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    data = os.path.join(root, "data")
+    synth_rooms(data, 0, SERVE_ROOMS, SERVE_ROOM_POINTS)
+    cfg = phase13_config(data, os.path.join(root, "exp"))
+    val = ScanNetDataset(cfg, "validation", seed=cfg.manual_seed)
+    caps = estimate_level_caps([val], 1, cfg.bucket_multiple, sample=SERVE_ROOMS,
+                               margin=cfg.level_caps_margin)
+    cfg.level_caps = caps
+    if pretrain is None:
+        # seeded weights, BN calibrated by one train-mode pass over a room
+        pretrain = os.path.join(root, "ckpt")
+        model = build(cfg, device=device)
+        with torch.no_grad():
+            model.train()
+            model.forward_batch(pack_scenes([val[0]], level_caps=caps).to(device))
+            model.eval()
+        CheckpointManager(pretrain).save(0, create_train_state(model, make_optimizer(cfg)[0]))
+        del model
+        source = "seeded weights, BN calibrated once"
+    else:
+        source = f"phase 13's checkpoint ({pretrain})"
+    procs = {}
+    for kind, extra, platforms in (("standard", {}, (device, "cpu")),
+                                   ("fused_eval", {"fused_eval": True}, (device,))):
+        path = os.path.join(root, f"{kind}.json")
+        with open(path, "w") as f:
+            json.dump({**cfg, **extra}, f)
+        procs[kind] = subprocess.Popen(
+            [sys.executable, "-m", "pcf_torch.serve.export", "--config", path,
+             "--pretrain_path", pretrain, "--out", os.path.join(root, kind),
+             "--platforms", ",".join(dict.fromkeys(platforms))],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return dict(root=root, data=data, cfg=cfg, pretrain=pretrain, source=source, procs=procs,
+                t0=time.perf_counter())
+
+
+def serve_phase(wrappers, smi, pretrain=None, device="cuda", started=None):
+    """Phase 15: the serving path on the card (see the module docstring),
+    the programs served on `device`, from the exports serve_start started
+    (`started`; else started here, from `pretrain`)."""
     from pcf_torch.entry import build
     from pcf_torch.nn.layers import PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE
     from pcf_torch.parallel.mesh import make_eval_step
     from pcf_torch.serve import ServingModel
     from pcf_torch.serve.predict import load_scene
     from pcf_torch.train.checkpoint import CheckpointManager
-    from pcf_torch.train.state import create_train_state, make_optimizer
 
     t_phase = time.perf_counter()
-    here = os.path.dirname(os.path.abspath(__file__))
+    started = started or serve_start(pretrain, device)
     conv_layers = (PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
-        data = os.path.join(root, "data")
-        subprocess.run([sys.executable, os.path.join(here, "tools", "make_synth_dataset.py"),
-                        "--out", data, "--train", "0", "--val", str(SERVE_ROOMS),
-                        "--points", str(SERVE_ROOM_POINTS)], check=True, capture_output=True)
-        # phase 13's configuration, its level caps pinned to the validation
-        # rooms: the artifact has one bucket
-        cfg = phase13_config(data, os.path.join(root, "exp"))
-        val = ScanNetDataset(cfg, "validation", seed=cfg.manual_seed)
-        caps = estimate_level_caps([val], 1, cfg.bucket_multiple, sample=SERVE_ROOMS,
-                                   margin=cfg.level_caps_margin)
-        cfg.level_caps = caps
+    root, data, cfg = started["root"], started["data"], started["cfg"]
+    pretrain, source = started["pretrain"], started["source"]
+    try:
         scenes = sorted(glob.glob(os.path.join(data, "val", "*.npz")))
-        if pretrain is None:
-            # seeded weights, BN calibrated by one train-mode pass over a room
-            pretrain = os.path.join(root, "ckpt")
-            model = build(cfg, device=device)
-            with torch.no_grad():
-                model.train()
-                model.forward_batch(pack_scenes([val[0]], level_caps=caps).to(device))
-                model.eval()
-            CheckpointManager(pretrain).save(0, create_train_state(model, make_optimizer(cfg)[0]))
-            del model
-            source = "seeded weights, BN calibrated once"
-        else:
-            source = f"phase 13's checkpoint ({pretrain})"
-
-        # -- export: both artifacts, one process each, at the same time ---------
-        procs = {}
-        for kind, extra in (("standard", {}), ("fused_eval", {"fused_eval": True})):
-            path = os.path.join(root, f"{kind}.json")
-            with open(path, "w") as f:
-                json.dump({**cfg, **extra}, f)
-            procs[kind] = subprocess.Popen(
-                [sys.executable, "-m", "pcf_torch.serve.export", "--config", path,
-                 "--pretrain_path", pretrain, "--out", os.path.join(root, kind),
-                 "--platforms", ",".join(dict.fromkeys((device, "cpu")))],
-                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        t0 = time.perf_counter()
-        for kind, proc in procs.items():
+        # -- export: both artifacts, one process each, started together -------
+        for kind, proc in started["procs"].items():
             out, _ = proc.communicate()
             assert proc.returncode == 0, f"export of {kind} failed:\n{out[-4000:]}"
             for line in out.splitlines():
                 if line.startswith(("exported", "derived", "restored", "params.npz")):
                     log(f"[serve] export {kind}: {line}")
-        export_wall = time.perf_counter() - t0
-        arts = {kind: os.path.join(root, kind) for kind in procs}
+        export_wall = time.perf_counter() - started["t0"]
+        waited = time.perf_counter() - t_phase
+        arts = {kind: os.path.join(root, kind) for kind in started["procs"]}
         for kind, art in arts.items():
             sizes = {f: os.path.getsize(os.path.join(art, f)) for f in sorted(os.listdir(art))}
             log(f"[serve] artifact {kind} ({source}): " + ", ".join(
                 f"{f} {n / 2**20:.2f} MiB" for f, n in sizes.items()))
-        log(f"[serve] both exports (standard, fused_eval; cuda and cpu each) in "
-            f"{export_wall:.1f} s wall, in parallel")
+        log(f"[serve] both exports (standard for {device} and cpu, fused_eval for {device}) "
+            f"done {export_wall:.1f} s after their start, in parallel; phase 15 waited "
+            f"{waited:.1f} s for them")
 
         # -- the CLI in a fresh process: labels, and no model code loaded -------
         preds = os.path.join(root, "predictions")
@@ -2304,7 +2328,7 @@ def serve_phase(wrappers, smi, pretrain=None, device="cuda"):
                 "('jax', 'pcf_tpu'))))").format(a=arts["standard"], o=preds, d=device,
                                                  g=os.path.join(data, "val", "*.npz"))
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
+        r = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True,
                            text=True)
         assert r.returncode == 0, f"pcf_torch.serve.predict failed:\n{r.stderr[-4000:]}"
         lines = r.stdout.strip().splitlines()
@@ -2444,6 +2468,8 @@ def serve_phase(wrappers, smi, pretrain=None, device="cuda"):
             del served
             gc.collect()
         model.cfg.fused_eval = False
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[serve] summary ({smi}): {json.dumps(summary)}; phase 15 "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -2612,10 +2638,7 @@ def mesh_phase(cfg, batch, wrappers, smi):
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
             data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
-            subprocess.run([sys.executable, os.path.join(
-                os.path.dirname(os.path.abspath(__file__)), "tools", "make_synth_dataset.py"),
-                "--out", data, "--train", str(MESH_ROOMS[0]), "--val", str(MESH_ROOMS[1]),
-                "--points", str(ENTRY_ROOM_POINTS)], check=True, capture_output=True)
+            synth_rooms(data, *MESH_ROOMS, ENTRY_ROOM_POINTS)
             cfg_h = phase13_config(data, exp)
             cfg_h.multi_host = True
             for fn in wrappers.values():
@@ -3129,10 +3152,7 @@ def spatial_phase(cfg, batch, wrappers, smi):
     os.environ.update(env)
     try:
         data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
-        subprocess.run([sys.executable, os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "tools", "make_synth_dataset.py"),
-            "--out", data, "--train", str(MESH_ROOMS[0]), "--val", str(MESH_ROOMS[1]),
-            "--points", str(ENTRY_ROOM_POINTS)], check=True, capture_output=True)
+        synth_rooms(data, *MESH_ROOMS, ENTRY_ROOM_POINTS)
         cfg_h = phase13_config(data, exp)
         cfg_h.update(multi_host=True, spatial_train=True)
         for fn in wrappers.values():
@@ -3168,6 +3188,229 @@ def spatial_phase(cfg, batch, wrappers, smi):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 19: the shipped configurations that no chip run had run, in this
+# order, each through the trainer's and eval.simple's CLIs at its published
+# widths; one (CONFIG_MODULE_RUN) once more through `python -m
+# pcf_torch.train.trainer` in a process of its own
+CONFIG_NAMES = ("pcf_10cm", "pcf_pallas_10cm", "pcf_10cm_lite", "pcf_5cm", "pcf_2cm_ptf2")
+CONFIG_MODULE_RUN = "pcf_10cm_lite"
+# phase 19's depth: micro-steps per configuration (2 train steps at
+# BATCH_SIZE 16 and 3; pcf_2cm_ptf2's accum_iter 5 at BATCH_SIZE 2: one
+# optimizer update) and validation rooms, of phase 14's rooms
+CONFIG_STEPS = {"pcf_2cm_ptf2": 5}
+CONFIG_DEFAULT_STEPS, CONFIG_VAL_ROOMS = 2, 2
+
+
+def room_subset(rooms: str, out: str, train: int, val: int) -> str:
+    """out/train and out/val: links to the first `train` and `val` rooms of
+    `rooms` (synth_rooms' layout). Returns out."""
+    for split, n in (("train", train), ("val", val)):
+        os.makedirs(os.path.join(out, split))
+        files = sorted(glob.glob(os.path.join(rooms, split, "*.npz")))
+        assert len(files) >= n, f"{len(files)} {split} rooms, {n} needed"
+        for f in files[:n]:
+            os.symlink(f, os.path.join(out, split, os.path.basename(f)))
+    return out
+
+
+def expected_launches(cfg) -> set:
+    """The port kernels a phase 19 configuration's switches launch in its
+    train and eval steps: B and C (plain edges: nei mode) where
+    nn/fused.fused_wins holds, none where it does not. None of the
+    configurations sets window_gather (A, D), fused_eval (E) or flat_geom
+    (the flat resolve); a configuration that did would need its own set."""
+    from pcf_torch.nn.fused import fused_wins
+
+    assert not (cfg.window_gather or cfg.fused_eval or cfg.flat_geom), cfg.config
+    return {"pcf_conv_linear", "pconv_pe_conv_linear"} if fused_wins(cfg) else set()
+
+
+def configs_phase(wrappers, smi, device="cuda", rooms=None):
+    """Phase 19: each of CONFIG_NAMES from pcf_torch/configs/<name>.json
+    through the trainer's CLI (trainer.cli, the argv `python -m` passes) and
+    eval.simple's (simple.cli), with --set overrides only for the data and
+    experiment paths and total_epoches=1, eval_freq=1, save_freq=1: every
+    width, BATCH_SIZE, bucket, mix3D, accum_iter, drop_path_rate and cap
+    setting the configuration's own. Gated per configuration: finite losses;
+    the checkpoint equal to main's final state bit for bit; accum_iter's
+    optimizer steps; scene 0's logits of the evaluation on the card against
+    the CPU port's forward on the same weights and batch (MODEL_TOL); the
+    launches per kernel that the switches imply (expected_launches), every
+    eager B and C call against its plain version; the card's memory
+    reserved after it, cache emptied, within the graphs held and 1 GiB; no
+    yaml imported. `rooms`: a directory of synth_rooms' rooms to link from
+    (phase 14's), else made here. The entry points take their default
+    device, the checks run on `device`."""
+    from pcf_torch.config import load_config
+    from pcf_torch.entry import build
+    from pcf_torch.eval import simple
+    from pcf_torch.train import trainer
+    from pcf_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.time()
+    summary = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_configs_") as root:
+        if rooms is None:
+            rooms = os.path.join(root, "rooms")
+            secs = synth_rooms(rooms, 16 * CONFIG_DEFAULT_STEPS, CONFIG_VAL_ROOMS)
+            log(f"[configs] rooms written in {secs:.1f} s")
+
+        def args_for(name, tag):
+            cfg = load_config(shipped_config(name))
+            n_train = CONFIG_STEPS.get(name, CONFIG_DEFAULT_STEPS) * cfg.BATCH_SIZE
+            data = room_subset(rooms, os.path.join(root, f"data_{tag}"), n_train,
+                               CONFIG_VAL_ROOMS)
+            exp = os.path.join(root, f"exp_{tag}")
+            sets = [*data_overrides(data, exp), f"eval_path={exp}/eval", "total_epoches=1",
+                    "eval_freq=1", "save_freq=1"]
+            argv = ["--config", shipped_config(name)] + [x for v in sets for x in ("--set", v)]
+            return argv + ([] if device == "cuda" else ["--device", device]), exp, n_train
+
+        rec = EntryRecorder(wrappers)
+        try:
+            for name in CONFIG_NAMES:
+                argv, exp, n_train = args_for(name, name)
+                cfg = trainer.parse_args(argv)[0]
+                want = expected_launches(cfg)
+                gc.collect()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+                rec.zero()
+                recs = eager_recorders() if want else []
+                ends = len(rec.epoch_ends)
+                t0 = time.perf_counter()
+                state = trainer.cli(argv)
+                torch.cuda.synchronize()
+                main_s = time.perf_counter() - t0
+                counts, captured = rec.counts(), dict(rec.in_capture)
+                train_counts = counts
+                train, val = rec.steps["train"][-1], rec.steps["eval"][-1]
+                log(f"[configs] {name}: trainer.cli {main_s:.1f} s, {len(train.calls)} "
+                    f"(micro-)steps at BATCH_SIZE {cfg.BATCH_SIZE}, accum_iter "
+                    f"{cfg.accum_iter}; launches {launch_split(counts, captured)}")
+                for k, n in counts.items():
+                    assert (n > 0) == (k in want), (
+                        f"[configs] {name}: {k} launched {n} times; the configuration's "
+                        f"switches launch {sorted(want) or 'no port kernel'}")
+                if recs:
+                    held_to_plain("[configs]", f"{name} trainer.main", recs, counts, captured)
+                    del recs
+                    gc.collect()
+                assert len(train.calls) == n_train // cfg.BATCH_SIZE, (
+                    f"[configs] {name}: {len(train.calls)} steps for {n_train} rooms")
+                lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
+                losses = [r["train_loss"] for r in lines if "train_loss" in r]
+                assert losses and all(math.isfinite(v) for v in losses), losses
+                ck = CheckpointManager(os.path.join(exp, "model"))
+                params, stats, epoch = ck.restore_eval()
+                saved = {**params, **stats}
+                for k, v in state.model.state_dict().items():
+                    assert torch.equal(v.cpu(), saved[k]), f"[configs] {name}: checkpoint at {k}"
+                opt = torch.load(ck._path(epoch), map_location="cpu",
+                                 weights_only=True)["optimizer"]
+                inner_steps = {int(v["step"]) for v in opt["inner"]["state"].values()}
+                assert opt["count"] == len(train.calls) and inner_steps == {
+                    len(train.calls) // cfg.accum_iter}, (
+                    f"[configs] {name}: {opt['count']} updates, inner optimizer steps "
+                    f"{inner_steps}, for {len(train.calls)} micro-steps at accum_iter "
+                    f"{cfg.accum_iter}")
+                calls, end = train.calls, rec.epoch_ends[ends]
+                first_s = calls[0]["ms"] / 1e3
+                s_it = ((end - calls[1]["start"]) / (len(calls) - 1) if len(calls) > 1
+                        else None)
+                peak = torch.cuda.max_memory_allocated()
+                log(f"[configs] {name}: losses {losses}, checkpoint of epoch {epoch} equal to "
+                    f"main's final state bit for bit; optimizer: {opt['count']} updates, "
+                    f"{inner_steps} inner steps; first step (eager run and capture) "
+                    f"{first_s:.3f} s" + ("" if s_it is None else
+                                         f", {s_it:.4f} s/it over steps 2-{len(calls)}")
+                    + f"; train graphs: {graph_pools(train)}; peak memory "
+                    f"{peak / 2**30:.2f} GiB")
+                del state, train, val
+                for steps in rec.steps.values():
+                    steps.clear()
+                gc.collect()
+
+                # -- eval.simple's CLI on the checkpoint ----------------------
+                rec.zero()
+                recs = eager_recorders() if want else []
+                t0 = time.perf_counter()
+                miou, mean_s = simple.cli(argv + ["--pretrain_path", os.path.join(exp, "model")])
+                eval_s = time.perf_counter() - t0
+                counts, captured = rec.counts(), dict(rec.in_capture)
+                for k, n in counts.items():
+                    assert (n > 0) == (k in want), (
+                        f"[configs] {name} evaluate: {k} launched {n} times")
+                if recs:
+                    held_to_plain("[configs]", f"{name} evaluate", recs, counts, captured)
+                    del recs
+                ev = rec.steps["eval"][-1]
+                assert len(ev.calls) == 2 * CONFIG_VAL_ROOMS, len(ev.calls)
+                assert 0.0 <= miou <= 1.0 and math.isfinite(mean_s), (miou, mean_s)
+                model = ev.calls[0]["model"]
+                model_cpu = build(model.cfg, device="cpu")
+                model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+                batch = ev.calls[1]["batch"]
+                with torch.no_grad():
+                    want_l = model_cpu.forward_batch(batch.to("cpu"))
+                m0 = batch.masks[0].cpu()
+                got = ev.calls[1]["logits"].cpu()
+                diff = max_diff(got[m0], want_l[m0])
+                assert torch.allclose(got[m0], want_l[m0], **MODEL_TOL), (
+                    f"[configs] {name} evaluate scene 0: logits on the card {diff:.3e} from "
+                    f"the CPU's")
+                pool = ev.graphs.pool_bytes()
+                log(f"[configs] {name}: eval.simple.cli {eval_s:.1f} s (evaluate's mean "
+                    f"{mean_s * 1e3:.3f} ms a scene, replay ms "
+                    f"{[round(c['ms'], 3) for c in ev.calls[1::2]]}), launches "
+                    f"{launch_split(counts, captured)}; mIoU {miou:.4f}; scene 0's logits "
+                    f"against the CPU port (same weights and batch): max abs err {diff:.3e} "
+                    f"(scale {want_l[m0].abs().max().item():.3e}, MODEL_TOL); eval graphs: "
+                    f"{graph_pools(ev)}")
+                del model, model_cpu, ev, batch, got, want_l
+                for steps in rec.steps.values():
+                    steps.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                grown = torch.cuda.memory_reserved() - reserved
+                assert grown <= 2**30, (
+                    f"[configs] {name}: {grown / 2**20:.1f} MiB of the card's memory still "
+                    f"reserved after the run, no graph held")
+                summary[name] = dict(main_s=round(main_s, 1), eval_s=round(eval_s, 1),
+                                     first_step_s=first_s, s_it=s_it, steps=len(calls),
+                                     launches={KERNEL_LETTERS[k]: (train_counts[k], counts[k])
+                                               for k in sorted(want)},
+                                     peak_gib=round(peak / 2**30, 2), eval_pool_mib=pool / 2**20,
+                                     miou=miou, reserved_after_mib=grown / 2**20)
+                log(f"[configs] {name} ({smi}): {json.dumps(summary[name])}")
+        finally:
+            rec.restore()
+
+        # -- the module entry: python -m pcf_torch.train.trainer ------------
+        argv, exp, n_train = args_for(CONFIG_MODULE_RUN, "module")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pcf_torch.train.trainer", *argv], cwd=HERE,
+                           capture_output=True, text=True)
+        module_s = time.perf_counter() - t0
+        assert r.returncode == 0, (
+            f"[configs] python -m pcf_torch.train.trainer --config {CONFIG_MODULE_RUN}.json "
+            f"exited {r.returncode}:\n{r.stderr[-4000:]}")
+        lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
+        losses = [x["train_loss"] for x in lines if "train_loss" in x]
+        assert losses and all(math.isfinite(v) for v in losses), losses
+        params, stats, epoch = CheckpointManager(os.path.join(exp, "model")).restore_eval()
+        assert epoch == 1 and all(torch.isfinite(v).all() for v in params.values())
+        log(f"[configs] python -m pcf_torch.train.trainer --config "
+            f"pcf_torch/configs/{CONFIG_MODULE_RUN}.json (and the --set overrides) in a process "
+            f"of its own: {module_s:.1f} s, exit 0, losses {losses}, a finite checkpoint of "
+            f"epoch 1")
+    assert "yaml" not in sys.modules, "phase 19 imported yaml"
+    log(f"[configs] summary ({smi}; launches: trainer.main, evaluate): {json.dumps(summary)}; "
+        f"no yaml imported; phase 19 "
+        f"{time.time() - t_phase:.1f} s")
 
 
 def conv_times(model, batch, summary):
@@ -3244,21 +3487,32 @@ def main() -> int:
     from pcf_torch.train.loss import cross_entropy_loss
 
     t_start = time.time()
+    lap = [t_start]
+
+    def phase_time(n):
+        """[time] phase n: the seconds since the last phase ended."""
+        now = time.time()
+        log(f"[time] phase {n}: {now - lap[0]:.1f} s")
+        lap[0] = now
+
     # ---- 1 device -------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = smi_line()
     log(f"[device] {name} count={count} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
+    phase_time(1)
 
     # ---- 2 build --------------------------------------------------------
     t0 = time.time()
-    reports = kbuild.build()
-    log(f"[build] nvcc {' '.join(kbuild.NVCC_FLAGS)}: {time.time() - t0:.1f} s")
+    reports = kbuild.build()  # prints each source's seconds
+    log(f"[build] nvcc {' '.join(kbuild.NVCC_FLAGS)}, translation units where split "
+        f"{kbuild.PARTS}: {time.time() - t0:.1f} s")
     for src, text in reports.items():
         for line in text.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"[build] {src}: {line.strip()}")
+    phase_time(2)
 
     kernels = {"window_resolve": window_resolve, "pcf_conv_linear": pcf_conv_linear,
                "pconv_pe_conv_linear": pconv_pe_conv_linear}
@@ -3343,6 +3597,7 @@ def main() -> int:
         f"{extra_us:.2f} us more a call; "
         + ", ".join(f"{d} {n} calls a forward, {n * extra_us / 1e3:.3f} ms of its eager median"
                     for d, n in n_calls.items()))
+    phase_time(3)
 
     # ---- 4 kernels ------------------------------------------------------
     def bytes_ops(kname, args):
@@ -3473,6 +3728,7 @@ def main() -> int:
                     + ("" if baseline is None or kname != "window_resolve"
                        else against_baseline(cl)))
     del runs
+    phase_time(4)
 
     # ---- 5 model: card against CPU ---------------------------------------
     # phase 3's configuration, and pcf_torch.bench's (the contraction in
@@ -3496,6 +3752,7 @@ def main() -> int:
         log(f"[model] entry size, f32{label}, card vs CPU plain: max abs err {err:.3e} "
             f"(logit scale {want[m].abs().max().item():.3e})")
         assert torch.allclose(got[m], want[m], **MODEL_TOL), f"model logits differ: {err:.3e}"
+    phase_time(5)
 
     # ---- 6 train ---------------------------------------------------------
     all_kernels = dict(kernels, window_scatter=window_scatter)
@@ -3588,6 +3845,7 @@ def main() -> int:
             f"bit-exact, kernel {ms:.3f} ms, bound {b_ms:.4f} ms by bytes "
             f"({tot_b / 1e6:.1f} MB)")
     del calls
+    phase_time(6)
 
     # ---- 7 scatter: kernel D against its plain version --------------------
     for dtype_name, run in train_runs.items():
@@ -3645,6 +3903,7 @@ def main() -> int:
             f"index_add_ {lib_ms:.3f} ms, bound {b_ms:.4f} ms by bytes "
             f"({tot_b / 1e6:.1f} MB)")
     del train_runs, run, calls
+    phase_time(7)
 
     # ---- 8 grads: card against CPU ---------------------------------------
     # the same step on the CPU in float64 is the reference that both f32
@@ -3705,6 +3964,7 @@ def main() -> int:
         f"L2 error {tree_error(grads['cuda'], grads['cpu']):.3e}")
     assert over == 0, f"gradient {worst_key} differs: {worst:.3f} of its tolerance"
     del steps, smooth, gpu_model, cpu_model, grads
+    phase_time(8)
 
     # ---- 9 fused: the folded-BN forward, kernel E --------------------------
     conv_layers = (PointConv, PointConvStridePE, PCFLayer, PointConvTransposePE)
@@ -3777,6 +4037,7 @@ def main() -> int:
         log(f"[fused] {dtype_name}: forward ms, {FWD_REPS} reps after {FWD_WARMUP} warm-up "
             f"in turns: {turns_summary(ts, valid)}; fused forward peak memory "
             f"{(peak - resident) / 2**20:.1f} MiB above resident")
+    phase_time(9)
 
     # ---- 10 layer: kernel E against its plain version ---------------------
     for dtype_name, run in fused_runs.items():
@@ -3825,6 +4086,7 @@ def main() -> int:
             f"err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library none, "
             f"bound {b_ms:.4f} ms by {b_by} ({tot_b / 1e6:.1f} MB, {tot_o / 1e9:.2f} GOP)")
     del fused_runs, run, calls
+    phase_time(10)
 
     # ---- 11 flat: flat stage geometry, f32 --------------------------------
     model = models["float32"]
@@ -3885,6 +4147,7 @@ def main() -> int:
         f"{turns_summary(ts, valid)}; flat_geom forward peak memory "
         f"{(peak - resident) / 2**20:.1f} MiB above resident")
     del model, logits, standard, rec
+    phase_time(11)
 
     # ---- 12 graphs: the captured steps ------------------------------------
     _, batch2 = flagship_batch(level0_points=20000, bucket=4096, n_scenes=2,
@@ -3894,51 +4157,69 @@ def main() -> int:
     graphs_phase(cfg, batch, batch2, models, eager_launches, valid)
     del models, batch2
     bench_phase()
+    phase_time(12)
 
-    # ---- 13 entry: the user's entry points --------------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    every = dict(all_kernels, window_resolve_flat=window_resolve_flat,
+                 fused_layer_eval=fused_layer_eval)
     kept = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    entry_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
-                     fused_layer_eval=fused_layer_eval), smi,
-                keep_checkpoint=os.path.join(kept, "model"))
-
-    # ---- 14 pyramid: the device pyramid and voting ------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    pyramid_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
-                       fused_layer_eval=fused_layer_eval), smi)
-
-    # ---- 15 serve: export, the serving CLI, the exported programs -------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    rooms = tempfile.mkdtemp(prefix="chip_smoke_rooms_")
+    started = None
     try:
-        serve_phase(dict(all_kernels, window_resolve_flat=window_resolve_flat,
-                         fused_layer_eval=fused_layer_eval), smi,
-                    pretrain=os.path.join(kept, "model"))
+        # ---- 13 entry: the user's entry points ----------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry_phase(every, smi, keep_checkpoint=os.path.join(kept, "model"))
+        # phase 15's exports, from phase 13's checkpoint, run beside phase 14
+        started = serve_start(os.path.join(kept, "model"))
+        phase_time(13)
+
+        # ---- 14 pyramid: the device pyramid and voting --------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs = synth_rooms(rooms, PYRAMID_TRAIN_ROOMS, PYRAMID_VAL_ROOMS)
+        log(f"[pyramid] {PYRAMID_TRAIN_ROOMS} + {PYRAMID_VAL_ROOMS} synthetic rooms written in "
+            f"{secs:.1f} s (phases 14 and 19 read them)")
+        pyramid_phase(every, smi, rooms=rooms)
+        phase_time(14)
+
+        # ---- 15 serve: export, the serving CLI, the exported programs ------
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_phase(every, smi, started=started)
+        started = None
+        phase_time(15)
+
+        # ---- 16 mesh: data-parallel training on a 1-rank NCCL group --------
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_phase(cfg, batch, all_kernels, smi)
+        phase_time(16)
+
+        # ---- 17 variants: the off-default model keys and classification ----
+        gc.collect()
+        torch.cuda.empty_cache()
+        variants_phase(all_kernels, smi)
+        phase_time(17)
+
+        # ---- 18 spatial: one batch's points sharded over the ranks ---------
+        gc.collect()
+        torch.cuda.empty_cache()
+        spatial_phase(cfg, batch, all_kernels, smi)
+        phase_time(18)
+
+        # ---- 19 configs: the shipped configurations through the CLIs -------
+        gc.collect()
+        torch.cuda.empty_cache()
+        configs_phase(every, smi, rooms=rooms)
+        phase_time(19)
     finally:
+        if started is not None:  # a phase before 15 failed: stop the exports
+            for proc in started["procs"].values():
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(started["root"], ignore_errors=True)
         shutil.rmtree(kept, ignore_errors=True)
-
-    # ---- 16 mesh: data-parallel training on a 1-rank NCCL group ------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    mesh_phase(cfg, batch, all_kernels, smi)
-    log(f"[mesh] phase 16: {time.time() - t0:.1f} s")
-
-    # ---- 17 variants: the off-default model keys and classification --------
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    variants_phase(all_kernels, smi)
-    log(f"[variants] phase 17: {time.time() - t0:.1f} s")
-
-    # ---- 18 spatial: one batch's points sharded over the ranks -------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    spatial_phase(cfg, batch, all_kernels, smi)
-    log(f"[spatial] phase 18: {time.time() - t0:.1f} s")
+        shutil.rmtree(rooms, ignore_errors=True)
 
     log(f"[done] {time.time() - t_start:.1f} s")
     # the flat resolve reads geometry, f32 in either dtype: its float32 row

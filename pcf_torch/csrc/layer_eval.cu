@@ -546,6 +546,86 @@ layer_eval_kernel(const LayerEvalArgs a, const Plan p, float* work) {
   }
 }
 
+template <typename KernelT>
+int launch_kernel(KernelT kernel, const LayerEvalArgs& a, const Plan& p, float* work,
+                  cudaStream_t stream) {
+  // The opt-in holds for the current device only, so it is made on every
+  // launch; it costs far less than the launch.
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  if (p.g.csplits > 1) {  // the tile counters start at zero; every block
+                         // writes the whole of its partial tile
+    const size_t slots = (size_t)p.g.csplits * a.M * a.O;
+    const cudaError_t e = cudaMemsetAsync(reinterpret_cast<float*>(work) + slots, 0,
+                                          sizeof(int) * (size_t)p.g.tiles * p.g.splits, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3(p.g.tiles, p.g.splits, p.g.csplits), kThreads, p.smem, stream>>>(a, p, work);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#ifndef PCF_PARTS
+#define PCF_PARTS 1
+#define PCF_PART 0
+#endif
+
+// The kernel's instantiations, (i, BF16, NB). launch() reaches instantiation
+// i through layer_eval_launch_<i>, defined in translation unit i % PCF_PARTS:
+// build.py compiles this file once per part, the parts at once (as one unit
+// it took nvcc over twice as long as any other source); without PCF_PARTS
+// the file is one unit holding all of them.
+#define LAYER_EVAL_INSTANCES(X) \
+  X(0, true, 4) X(1, true, 8) X(2, true, 12) X(3, true, 16) \
+  X(4, false, 32) X(5, false, 64) X(6, false, 128) X(7, false, 256)
+
+// extern "C": one name in every unit; the arguments by pointer, as the
+// entry points take them
+#define LAYER_EVAL_DECLARE(i, BF16, NB) \
+  extern "C" int layer_eval_launch_##i(const void* args, const void* plan, float* work, \
+                                       void* stream);
+LAYER_EVAL_INSTANCES(LAYER_EVAL_DECLARE)
+#undef LAYER_EVAL_DECLARE
+
+#define LAYER_EVAL_DEFINE(i, BF16, NB)                                                      \
+  extern "C" int layer_eval_launch_##i(const void* args, const void* plan, float* work,    \
+                                       void* stream) {                                     \
+    return launch_kernel(layer_eval_kernel<BF16, NB>, *static_cast<const LayerEvalArgs*>(args), \
+                         *static_cast<const Plan*>(plan), work,                            \
+                         static_cast<cudaStream_t>(stream));                               \
+  }
+#if 0 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(0, true, 4)
+#endif
+#if 1 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(1, true, 8)
+#endif
+#if 2 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(2, true, 12)
+#endif
+#if 3 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(3, true, 16)
+#endif
+#if 4 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(4, false, 32)
+#endif
+#if 5 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(5, false, 64)
+#endif
+#if 6 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(6, false, 128)
+#endif
+#if 7 % PCF_PARTS == PCF_PART
+LAYER_EVAL_DEFINE(7, false, 256)
+#endif
+#undef LAYER_EVAL_DEFINE
+
+// the host side: the plan, the checks, the entry points (part 0's unit)
+#if PCF_PART == 0
+namespace {
+
 // The widest hidden activation (every MLP layer's output but the last).
 int hidden_max(const LayerEvalArgs& a) {
   int h = 1;
@@ -595,40 +675,21 @@ Plan make_plan(const LayerEvalArgs& a) {
   return p;
 }
 
-template <typename KernelT>
-int launch_kernel(KernelT kernel, const LayerEvalArgs& a, const Plan& p, float* work,
-                  cudaStream_t stream) {
-  // The opt-in holds for the current device only, so it is made on every
-  // launch; it costs far less than the launch.
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (err != cudaSuccess) return (int)err;
-  if (p.g.csplits > 1) {  // the tile counters start at zero; every block
-                         // writes the whole of its partial tile
-    const size_t slots = (size_t)p.g.csplits * a.M * a.O;
-    const cudaError_t e = cudaMemsetAsync(reinterpret_cast<float*>(work) + slots, 0,
-                                          sizeof(int) * (size_t)p.g.tiles * p.g.splits, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<dim3(p.g.tiles, p.g.splits, p.g.csplits), kThreads, p.smem, stream>>>(a, p, work);
-  return (int)cudaGetLastError();
-}
-
 int launch(const LayerEvalArgs& a, const Plan& p, float* work, cudaStream_t s) {
   if (a.bf16) {
     switch (p.g.nt) {
-      case 4: return launch_kernel(layer_eval_kernel<true, 4>, a, p, work, s);
-      case 8: return launch_kernel(layer_eval_kernel<true, 8>, a, p, work, s);
-      case 12: return launch_kernel(layer_eval_kernel<true, 12>, a, p, work, s);
-      case 16: return launch_kernel(layer_eval_kernel<true, 16>, a, p, work, s);
+      case 4: return layer_eval_launch_0(&a, &p, work, s);
+      case 8: return layer_eval_launch_1(&a, &p, work, s);
+      case 12: return layer_eval_launch_2(&a, &p, work, s);
+      case 16: return layer_eval_launch_3(&a, &p, work, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (p.g.obp) {
-    case 32: return launch_kernel(layer_eval_kernel<false, 32>, a, p, work, s);
-    case 64: return launch_kernel(layer_eval_kernel<false, 64>, a, p, work, s);
-    case 128: return launch_kernel(layer_eval_kernel<false, 128>, a, p, work, s);
-    case 256: return launch_kernel(layer_eval_kernel<false, 256>, a, p, work, s);
+    case 32: return layer_eval_launch_4(&a, &p, work, s);
+    case 64: return layer_eval_launch_5(&a, &p, work, s);
+    case 128: return layer_eval_launch_6(&a, &p, work, s);
+    case 256: return layer_eval_launch_7(&a, &p, work, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -695,3 +756,4 @@ extern "C" void layer_eval_shape(const LayerEvalArgs* args, long long* shape) {
                                                             (long long)p.g.tiles * p.g.splits)
                              : 0;
 }
+#endif  // PCF_PART == 0

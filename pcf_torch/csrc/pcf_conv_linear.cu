@@ -308,23 +308,84 @@ int launch_kernel(KernelT kernel, const Args& a, const Shape& sh, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
-template <bool PE>
-int launch(bool bf16, const Args& a, const Shape& sh, cudaStream_t s) {
+}  // namespace
+
+#ifndef PCF_PARTS
+#define PCF_PARTS 1
+#define PCF_PART 0
+#endif
+
+// The kernel's instantiations, (i, BF16, NB), each in both modes (B, and C:
+// PE). launch() reaches pair i through conv_linear_launch_<i>, defined in
+// translation unit i % PCF_PARTS: build.py compiles this file once per
+// part, the parts at once (as one unit it was the longest build); without
+// PCF_PARTS the file is one unit holding all of them.
+#define CONV_LINEAR_DECLARE(i)                                                          \
+  extern "C" int conv_linear_launch_##i(bool pe, const void* args, const void* shape, \
+                                        void* stream);
+CONV_LINEAR_DECLARE(0) CONV_LINEAR_DECLARE(1) CONV_LINEAR_DECLARE(2) CONV_LINEAR_DECLARE(3)
+CONV_LINEAR_DECLARE(4) CONV_LINEAR_DECLARE(5) CONV_LINEAR_DECLARE(6) CONV_LINEAR_DECLARE(7)
+CONV_LINEAR_DECLARE(8)
+#undef CONV_LINEAR_DECLARE
+
+#define CONV_LINEAR_DEFINE(i, BF16, NB)                                                    \
+  extern "C" int conv_linear_launch_##i(bool pe, const void* args, const void* shape,    \
+                                        void* stream) {                                  \
+    const Args& a = *static_cast<const Args*>(args);                                     \
+    const Shape& sh = *static_cast<const Shape*>(shape);                                 \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                                  \
+    return pe ? launch_kernel(conv_linear_kernel<BF16, NB, true>, a, sh, s)              \
+              : launch_kernel(conv_linear_kernel<BF16, NB, false>, a, sh, s);            \
+  }
+#if 0 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(0, true, 2)
+#endif
+#if 1 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(1, true, 4)
+#endif
+#if 2 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(2, true, 6)
+#endif
+#if 3 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(3, true, 8)
+#endif
+#if 4 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(4, true, 10)
+#endif
+#if 5 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(5, false, 32)
+#endif
+#if 6 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(6, false, 64)
+#endif
+#if 7 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(7, false, 128)
+#endif
+#if 8 % PCF_PARTS == PCF_PART
+CONV_LINEAR_DEFINE(8, false, 256)
+#endif
+#undef CONV_LINEAR_DEFINE
+
+// the host side: the checks and the entry points (part 0's unit)
+#if PCF_PART == 0
+namespace {
+
+int launch(bool pe, bool bf16, const Args& a, const Shape& sh, cudaStream_t s) {
   if (bf16) {
     switch (sh.g.nt) {
-      case 2: return launch_kernel(conv_linear_kernel<true, 2, PE>, a, sh, s);
-      case 4: return launch_kernel(conv_linear_kernel<true, 4, PE>, a, sh, s);
-      case 6: return launch_kernel(conv_linear_kernel<true, 6, PE>, a, sh, s);
-      case 8: return launch_kernel(conv_linear_kernel<true, 8, PE>, a, sh, s);
-      case 10: return launch_kernel(conv_linear_kernel<true, 10, PE>, a, sh, s);
+      case 2: return conv_linear_launch_0(pe, &a, &sh, s);
+      case 4: return conv_linear_launch_1(pe, &a, &sh, s);
+      case 6: return conv_linear_launch_2(pe, &a, &sh, s);
+      case 8: return conv_linear_launch_3(pe, &a, &sh, s);
+      case 10: return conv_linear_launch_4(pe, &a, &sh, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (sh.g.obp) {
-    case 32: return launch_kernel(conv_linear_kernel<false, 32, PE>, a, sh, s);
-    case 64: return launch_kernel(conv_linear_kernel<false, 64, PE>, a, sh, s);
-    case 128: return launch_kernel(conv_linear_kernel<false, 128, PE>, a, sh, s);
-    case 256: return launch_kernel(conv_linear_kernel<false, 256, PE>, a, sh, s);
+    case 32: return conv_linear_launch_5(pe, &a, &sh, s);
+    case 64: return conv_linear_launch_6(pe, &a, &sh, s);
+    case 128: return conv_linear_launch_7(pe, &a, &sh, s);
+    case 256: return conv_linear_launch_8(pe, &a, &sh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -374,7 +435,7 @@ int run(bool pe, int bf16, const void* feats, int n_rows, int C, const void* nei
           (E == 0 || reinterpret_cast<uintptr_t>(extra) % 16 == 0);
   a.vvec = W % 4 == 0 && reinterpret_cast<uintptr_t>(v) % (bf16 ? 8 : 16) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pe ? launch<true>(bf16 != 0, a, sh, s) : launch<false>(bf16 != 0, a, sh, s);
+  return launch(pe, bf16 != 0, a, sh, s);
 }
 
 }  // namespace
@@ -427,3 +488,4 @@ extern "C" void pcf_conv_linear_shape(int bf16, int Ct, int K, int W, int O, int
   shape[7] = bf16 != 0;
   shape[8] = sh.work;
 }
+#endif  // PCF_PART == 0

@@ -17,8 +17,9 @@ is then one more call, a replay on the card, ended by
 torch.cuda.synchronize() (utils/timing.py's protocol with one call).
 
 Usage:
-  python -m pcf_torch.eval.simple --config <yaml> --pretrain_path <exp>/model
-      [--split validation] [--set KEY=VALUE ...] [--device cpu]
+  python -m pcf_torch.eval.simple --config pcf_torch/configs/<name>.json
+      --pretrain_path <exp>/model [--split validation] [--set KEY=VALUE ...]
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -150,7 +151,9 @@ def evaluate(cfg, pretrain_path: str | None = None, split: str = "validation",
     return miou, np.mean(times)
 
 
-if __name__ == "__main__":
+def parse_args(argv=None):
+    """(cfg, pretrain_path, split, device) from the command line
+    (sys.argv[1:] when argv is None); a .json config loads without yaml."""
     from pcf_torch.config import load_config
 
     p = argparse.ArgumentParser("pcf_torch simple eval")
@@ -160,5 +163,16 @@ if __name__ == "__main__":
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE", help="config override (repeatable)")
     p.add_argument("--device", default=None, help="the device to run on (default: cuda)")
-    a = p.parse_args()
-    evaluate(load_config(a.config, a.overrides), a.pretrain_path, a.split, device=a.device)
+    a = p.parse_args(argv)
+    return load_config(a.config, a.overrides), a.pretrain_path, a.split, a.device
+
+
+def cli(argv=None):
+    """`python -m pcf_torch.eval.simple` with these arguments; returns
+    evaluate's (mIoU, mean seconds per scene)."""
+    cfg, pretrain_path, split, device = parse_args(argv)
+    return evaluate(cfg, pretrain_path, split, device=device)
+
+
+if __name__ == "__main__":
+    cli()

@@ -18,8 +18,9 @@ overwrites them. Covering sets are built ahead by a thread pool; every CUDA
 call stays on the calling thread.
 
 Usage:
-  python -m pcf_torch.eval.voting --config <yaml> --pretrain_path <exp>/model
-      [--vote_num 8] [--init_deg 0.0] [--set KEY=VALUE ...] [--device cpu]
+  python -m pcf_torch.eval.voting --config pcf_torch/configs/<name>.json
+      --pretrain_path <exp>/model [--vote_num 8] [--init_deg 0.0]
+      [--set KEY=VALUE ...] [--device cpu]
 """
 
 from __future__ import annotations

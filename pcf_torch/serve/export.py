@@ -29,6 +29,11 @@ programs take (flat_params, feats, points, edges_self, edges_forward,
 edges_propagate, norms, masks), flat_params the {name: tensor} dict of
 params.npz and each WindowedEdges the tuple (nei, window_rows, localT)
 (_batch_args), and hold no weights of their own.
+
+Usage:
+  python -m pcf_torch.serve.export --config pcf_torch/configs/<name>.json
+      --pretrain_path <exp>/model --out <artifact> [--platforms cuda,cpu]
+      [--set KEY=VALUE ...]
 """
 
 from __future__ import annotations
@@ -354,7 +359,8 @@ class ServingModel:
         return labels, probs
 
 
-def main():
+def parse_args(argv=None):
+    """The command line's arguments (sys.argv[1:] when argv is None)."""
     p = argparse.ArgumentParser("pcf_torch AOT export")
     p.add_argument("--config", required=True)
     p.add_argument("--pretrain_path", default=None)
@@ -366,14 +372,19 @@ def main():
                    help="comma-separated, e.g. cuda,cpu (default: cuda)")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE")
-    a = p.parse_args()
+    return p.parse_args(argv)
 
+
+def main(argv=None):
+    """`python -m pcf_torch.serve.export` with these arguments; a .json
+    config loads without yaml."""
     from pcf_torch.config import load_config
     from pcf_torch.core.batching import pack_scenes
     from pcf_torch.data.scannet import ScanNetDataset
     from pcf_torch.entry import build_eval
     from pcf_torch.train.checkpoint import CheckpointManager
 
+    a = parse_args(argv)
     platforms = _platforms(a.platforms.split(",") if a.platforms else None)
     cfg = load_config(a.config, a.overrides)
     dataset = ScanNetDataset(cfg, split=a.split, seed=cfg.manual_seed)

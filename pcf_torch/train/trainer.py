@@ -26,10 +26,13 @@ card, which would idle it while the host prepares the next batch.
 cfg.profile_dir traces cfg.profile_steps steps of epoch cfg.profile_epoch
 with torch.profiler.
 
-Usage: python -m pcf_torch.train.trainer --config pcf_tpu/configs/pcf_10cm.yaml
+Usage: python -m pcf_torch.train.trainer --config pcf_torch/configs/pcf_10cm.json
        [--set KEY=VALUE ...] [--device cpu]
        torchrun --nproc_per_node=N -m pcf_torch.train.trainer --config ...
            [--set spatial_train=true]
+The shipped configurations are pcf_torch/configs/*.json (read without
+PyYAML); a --set value is parsed as YAML would parse it (config.parse_value),
+e.g. --set total_epoches=1 --set 'level_caps=[49152, 24576, 8192, 2048, 512]'.
 """
 
 from __future__ import annotations
@@ -398,7 +401,10 @@ def main(cfg, device=None):
     return state
 
 
-if __name__ == "__main__":
+def parse_args(argv=None):
+    """(cfg, device) from the command line (sys.argv[1:] when argv is None):
+    --config (a .json config loads with json alone), --set KEY=VALUE
+    (repeatable), --device."""
     from pcf_torch.config import load_config
 
     parser = argparse.ArgumentParser("pcf_torch ScanNet training")
@@ -407,9 +413,21 @@ if __name__ == "__main__":
                         metavar="KEY=VALUE", help="config override (repeatable)")
     parser.add_argument("--device", default=None,
                         help="the device to train on (default: cuda)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
+    return load_config(args.config, args.overrides), args.device
+
+
+def cli(argv=None):
+    """`python -m pcf_torch.train.trainer` with these arguments: main on the
+    parsed configuration, the process group left after it. Returns main's
+    final TrainState."""
+    cfg, device = parse_args(argv)
     try:
-        main(load_config(args.config, args.overrides), device=args.device)
+        return main(cfg, device=device)
     finally:
         if dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    cli()

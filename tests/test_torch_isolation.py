@@ -18,6 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {root!r})
+if {block_yaml!r}:
+    sys.modules["yaml"] = None  # as on the card's machine: no PyYAML
 import pcf_torch
 for m in pkgutil.walk_packages(pcf_torch.__path__, "pcf_torch."):
     importlib.import_module(m.name)
@@ -29,8 +31,8 @@ missing = [m for m in ("pcf_torch.native", "pcf_torch.data.scannet", "pcf_torch.
                        "pcf_torch.parallel.spatial", "pcf_torch.nn.sharded")
            if m not in sys.modules]
 assert not missing, missing
-bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pcf_tpu", "yaml"))
+bad = sorted(n for n, m in sys.modules.items() if m is not None
+             and n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pcf_tpu", "yaml"))
 assert not bad, bad
 print("modules", sum(n.startswith("pcf_torch") for n in sys.modules))
 """
@@ -43,9 +45,51 @@ def _run(args, cwd):
 
 
 def test_no_jax_flax_or_pcf_tpu_loaded():
-    r = _run(["-c", _IMPORT_ALL.format(root=ROOT)], ROOT)
+    r = _run(["-c", _IMPORT_ALL.format(root=ROOT, block_yaml=False)], ROOT)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.split()[-1]) >= 25, r.stdout
+
+
+def test_every_module_imports_with_yaml_blocked():
+    r = _run(["-c", _IMPORT_ALL.format(root=ROOT, block_yaml=True)], ROOT)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 25, r.stdout
+
+
+def test_cli_arguments_and_overrides_without_yaml(tmp_path, monkeypatch):
+    """The trainer's, eval.simple's and serve.export's argument parsing and
+    load_config with --set values on a shipped JSON config, PyYAML blocked
+    (the card's machine has none)."""
+    from pcf_torch.config import load_config
+    from pcf_torch.eval import simple
+    from pcf_torch.serve import export
+    from pcf_torch.train import trainer
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    config = os.path.join(ROOT, "pcf_torch", "configs", "pcf_2cm_ptf2.json")
+    sets = ["--set", f"train_data_path={tmp_path}/train/*.npz", "--set", "total_epoches=1",
+            "--set", "learning_rate=1.0e-3", "--set", "level_caps=[49152, 24576, 8192]",
+            "--set", "USE_PALLAS_KERNEL=yes", "--set", "note=1e-4", "--set", "optim.beta=~"]
+
+    def held(cfg):
+        assert cfg.config == config and cfg.accum_iter == 5 and cfg.mix3D is True
+        assert cfg.train_data_path == f"{tmp_path}/train/*.npz" and cfg.total_epoches == 1
+        assert cfg.learning_rate == 1e-3 and cfg.level_caps == [49152, 24576, 8192]
+        assert cfg.USE_PALLAS_KERNEL is True and cfg.note == "1e-4"
+        assert cfg.optim == {"beta": None}
+
+    cfg, device = trainer.parse_args(["--config", config, *sets, "--device", "cpu"])
+    held(cfg)
+    assert device == "cpu"
+    cfg, pretrain, split, device = simple.parse_args(
+        ["--config", config, "--pretrain_path", str(tmp_path / "model"), *sets])
+    held(cfg)
+    assert (pretrain, split, device) == (str(tmp_path / "model"), "validation", None)
+    a = export.parse_args(["--config", config, "--out", str(tmp_path / "art"), *sets,
+                           "--platforms", "cpu"])
+    held(load_config(a.config, a.overrides))
+    assert a.platforms == "cpu" and a.out == str(tmp_path / "art")
+    assert "yaml" not in {n for n, m in sys.modules.items() if m is not None}
 
 
 def test_entry_points_default_to_the_card():

@@ -353,23 +353,23 @@ def _evaluate_against_pcf_tpu(scene_dir, tmp_path, monkeypatch, **kw):
 
 
 def test_chip_smoke_phase13_config_is_synth_flagship(tmp_path):
-    """chip_smoke.py builds pcf_tpu/configs/synth_flagship.yaml in code (the
-    card's machine has no yaml): it equals the YAML loaded by the port with
-    the overrides listed in PERF.md."""
+    """chip_smoke.py loads the port's JSON copy of synth_flagship (the card's
+    machine has no yaml): it equals pcf_tpu/configs/synth_flagship.yaml
+    loaded by the port with the overrides listed in PERF.md."""
     data, exp = str(tmp_path / "data"), str(tmp_path / "exp")
     want = t_config.load_config(os.path.join(ROOT, "pcf_tpu", "configs", "synth_flagship.yaml"))
-    del want["compile_cache_dir"]
     want.update(USE_PALLAS_KERNEL=True, fused_min_points=0, resolve_impl="pallas",
                 train_data_path=f"{data}/train/*.npz", val_data_path=f"{data}/val/*.npz",
                 test_data_path=f"{data}/val/*.npz", experiment_dir=exp, total_epoches=1,
-                eval_freq=1, save_freq=1, config="pcf_tpu/configs/synth_flagship.yaml")
+                eval_freq=1, save_freq=1,
+                config=os.path.join(ROOT, "pcf_torch", "configs", "synth_flagship.json"))
     assert dict(chip_smoke.phase13_config(data, exp)) == dict(want)
 
 
 def test_chip_smoke_phase14_config_is_post_knn_10cm(tmp_path):
-    """chip_smoke.py builds pcf_tpu/configs/post_knn_10cm.yaml in code: it
-    equals the YAML loaded by the port with the overrides listed in PERF.md
-    section 4."""
+    """chip_smoke.py loads the port's JSON copy of post_knn_10cm: it equals
+    pcf_tpu/configs/post_knn_10cm.yaml loaded by the port with the overrides
+    listed in PERF.md section 4."""
     data, exp = str(tmp_path / "data"), str(tmp_path / "exp")
     want = t_config.load_config(os.path.join(ROOT, "pcf_tpu", "configs", "post_knn_10cm.yaml"))
     want.update(USE_PALLAS_KERNEL=True, fused_min_points=0, pin_level_caps=True,
@@ -379,5 +379,5 @@ def test_chip_smoke_phase14_config_is_post_knn_10cm(tmp_path):
                 eval_path=f"{exp}/eval", total_epoches=1, eval_freq=1, save_freq=1,
                 num_classes=8, classes=["wall", "floor", "ceiling", "table", "chair", "sofa",
                                         "cabinet", "clutter"],
-                config="pcf_tpu/configs/post_knn_10cm.yaml")
+                config=os.path.join(ROOT, "pcf_torch", "configs", "post_knn_10cm.json"))
     assert dict(chip_smoke.phase14_config(data, exp)) == dict(want)
