@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pcf_torch.ops.window import WindowedEdges, build_windows
+from pcf_torch.utils.trace import span
 
 
 @dataclass
@@ -52,9 +53,19 @@ class PackedPyramid:
 
     def to(self, device, dtype: torch.dtype | None = None) -> "PackedPyramid":
         """The batch on `device`; with `dtype`, its floating-point arrays
-        (features, points, normals) cast to it."""
-        return self._map(lambda x: x.to(device, dtype)
-                         if dtype is not None and x.is_floating_point() else x.to(device))
+        (features, points, normals) cast to it. Under the span recorder
+        (utils/trace) a copy from the host to a card first waits for the
+        card's queued work in a span of its own, batch.to.wait, which the
+        first blocking copy would wait for anyway."""
+        with span("batch.to") as s:
+            if s:
+                s.args.update(tensors=len(self.tensors()), bytes=self.nbytes())
+                device = torch.device(device)
+                if device.type == "cuda" and self.feats.device.type == "cpu":
+                    with span("batch.to.wait"):
+                        torch.cuda.current_stream(device).synchronize()
+            return self._map(lambda x: x.to(device, dtype)
+                             if dtype is not None and x.is_floating_point() else x.to(device))
 
     def clone(self) -> "PackedPyramid":
         return self._map(torch.clone)
@@ -65,6 +76,10 @@ class PackedPyramid:
         out = []
         self._map(lambda t: out.append(t) or t)
         return out
+
+    def nbytes(self) -> int:
+        """The bytes of every tensor of the batch."""
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def signature(self) -> tuple:
         """The key of a compiled step for this batch: the structure (levels,

@@ -23,6 +23,7 @@ from pcf_torch.core.batching import PackedPyramid
 from pcf_torch.ops.knn import knn
 from pcf_torch.ops.subsample import grid_subsample_fixed
 from pcf_torch.parallel.graphs import StepGraphs
+from pcf_torch.utils.trace import span
 
 
 def compute_knn_packed(batch: PackedPyramid, k_self: tuple, k_forward: tuple,
@@ -127,8 +128,12 @@ def prepare_flagged(batch: PackedPyramid, cfg):
 def check_overflow(overflow, cfg) -> None:
     """Raise when the device pyramid overflowed a level cap and
     cfg.check_pyramid_overflow (default on) asks for the check; the flag is
-    read back only then."""
-    if overflow is not None and cfg.get("check_pyramid_overflow", True) and bool(overflow):
+    read back only then, in the span sync.overflow (utils/trace)."""
+    if overflow is None or not cfg.get("check_pyramid_overflow", True):
+        return
+    with span("sync.overflow"):
+        overflowed = bool(overflow)
+    if overflowed:
         raise ValueError("device pyramid overflowed a level cap; raise "
                          "cfg.device_level_caps (or MAX_POINTS_NUM)")
 
@@ -147,21 +152,29 @@ def make_prepare(cfg):
     the preparation is captured once per (static_args, batch signature) into
     a CUDA graph and replayed after that; the batch handed back is a copy of
     the graph's outputs, and the overflow flag is read back once per batch,
-    before any step sees it. `prep.graphs` is the StepGraphs."""
+    before any step sees it. `prep.graphs` is the StepGraphs. A call is the
+    span prepare, with step.key, the graphs' spans, prepare.copy_out and
+    sync.overflow inside it (utils/trace)."""
     graphs = StepGraphs()
 
     def prep(batch: PackedPyramid, device) -> PackedPyramid:
-        device = torch.device(device)
+        with span("prepare"):
+            return run(batch, torch.device(device))
+
+    def run(batch, device):
         if device.type != "cuda":
             full, overflow = prepare_flagged(batch.to(device), cfg)
         else:
+            with span("step.key"):
+                program = ("prepare",) + static_args(cfg, batch.points[0].shape[0])
+                signature = batch.signature()
+            (full, overflow), _ = graphs.run(program, signature, (),
+                                             lambda b: prepare_flagged(b, cfg), batch, device)
             # level 0 of the outputs is the graph's static input batch, which
             # the next call overwrites, as a replay does the rest: copies
-            (full, overflow), _ = graphs.run(
-                ("prepare",) + static_args(cfg, batch.points[0].shape[0]),
-                batch.signature(), (), lambda b: prepare_flagged(b, cfg), batch, device)
-            full = full.clone()
-            overflow = None if overflow is None else overflow.clone()
+            with span("prepare.copy_out"):
+                full = full.clone()
+                overflow = None if overflow is None else overflow.clone()
         check_overflow(overflow, cfg)
         return full
 

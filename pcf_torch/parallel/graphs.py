@@ -22,7 +22,10 @@ The first call of a key:
 Every later call copies the batch into the static buffers and replays the
 graph. Its outputs are the graph's static tensors, overwritten by the next
 replay: the step function copies what it hands back. A capture that fails
-raises; nothing on the card falls back to eager execution.
+raises; nothing on the card falls back to eager execution. Under the span
+recorder (utils/trace) the copy is the span graphs.stage and the replay
+graphs.replay, each with its device time; a first call is
+graphs.first_call, its capture graphs.capture.
 
 Pools: every graph has its own, since its static outputs (and a train
 graph's gradients) stay live in it between replays; a capture reserves new
@@ -59,6 +62,7 @@ from typing import Any, Callable
 import torch
 
 from pcf_torch.core.batching import PackedPyramid
+from pcf_torch.utils.trace import span
 
 # the pools a StepGraphs may hold, in bytes; None: a quarter of the card's
 # memory
@@ -106,15 +110,23 @@ class StepGraphs:
         optimizer) while the graph lives."""
         entry = self.lookup(program, signature, stamp)
         if entry is not None:
-            entry.batch.copy_(batch)
-            entry.graph.replay()
+            with span("graphs.stage", device=True) as s:
+                if s:
+                    s.args["bytes"] = batch.nbytes()
+                entry.batch.copy_(batch)
+            with span("graphs.replay", device=True):
+                entry.graph.replay()
             self.replays += 1
             return entry.outputs, True
-        static = batch.to(device).clone()
-        outputs = body(static)
-        key = (program, signature)
-        self.entries[key] = self._capture(body, static, device, generator, keep)
-        self._fit_budget(key, device)
+        with span("graphs.first_call") as s:
+            static = batch.to(device).clone()
+            outputs = body(static)
+            key = (program, signature)
+            with span("graphs.capture"):
+                self.entries[key] = self._capture(body, static, device, generator, keep)
+            if s:
+                s.args["pool_bytes"] = self.entries[key].pool_bytes
+            self._fit_budget(key, device)
         return outputs, False
 
     def lookup(self, program, signature, stamp) -> Compiled | None:

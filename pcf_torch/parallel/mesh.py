@@ -57,6 +57,7 @@ from pcf_torch.parallel.graphs import StepGraphs
 from pcf_torch.train.loss import cross_entropy_loss
 from pcf_torch.train.metrics import intersection_and_union
 from pcf_torch.train.state import TrainState
+from pcf_torch.utils.trace import span
 
 
 AXIS = "data"  # cfg.bn_axis_name under a mesh: pcf_tpu's mesh axis
@@ -292,11 +293,16 @@ def make_train_step(cfg, mesh=None, class_weights=None
 def _captured_train(body, seeded, mesh, prepare=None, tag=()):
     """make_train_step's step on body and seeded (_train_parts); `prepare`
     maps the caller's batch to the step's own (parallel/spatial.py: this
-    rank's shard), and `tag` joins the graphs' program key."""
+    rank's shard), and `tag` joins the graphs' program key. A call is the
+    span step.train, its graphs' key step.key (utils/trace)."""
     eager = _eager_train(body, seeded)
     graphs = StepGraphs()
 
     def step(state: TrainState, batch: PackedPyramid, seed: int):
+        with span("step.train"):
+            return run(state, batch, seed)
+
+    def run(state, batch, seed):
         if prepare is not None:
             batch = prepare(batch)
         model, tx = state.model, state.tx
@@ -305,11 +311,13 @@ def _captured_train(body, seeded, mesh, prepare=None, tag=()):
             return eager(state, batch, seed)
         generator, _ = seeded(device, seed)
         steps = tx.begin()
+        with span("step.key"):
+            program = (_program_key(model), id(tx), steps) + tag
+            signature = batch.signature()
+            addresses = tuple(t.data_ptr() for t in model_tensors(model))
         (metrics, grads), replayed = graphs.run(
-            (_program_key(model), id(tx), steps) + tag, batch.signature(),
-            tuple(t.data_ptr() for t in model_tensors(model)),
-            lambda b: body(model, tx, b, generator, steps), batch, device,
-            generator=generator, keep=(model, tx))
+            program, signature, addresses, lambda b: body(model, tx, b, generator, steps),
+            batch, device, generator=generator, keep=(model, tx))
         for p, g in zip(tx.params, grads):
             p.grad = g
         if replayed:
@@ -348,18 +356,25 @@ def make_eval_step(cfg, mesh=None) -> Callable[[TrainState, PackedPyramid], torc
 
 def _captured_eval(eager, mesh, prepare=None, tag=()):
     """make_eval_step's step on the eager step `eager`; `prepare` and `tag`
-    as _captured_train's."""
+    as _captured_train's. A call is the span step.eval."""
     graphs = StepGraphs()
 
     def eval_step(state, batch: PackedPyramid):
+        with span("step.eval"):
+            return run(state, batch)
+
+    def run(state, batch):
         if prepare is not None:
             batch = prepare(batch)
         model = getattr(state, "model", state)
         device = next(model.parameters()).device
         if not _captures(device, mesh):
             return eager(model, batch)
-        logits, replayed = graphs.run(_program_key(model) + tag, batch.signature(),
-                                      stamp(model_tensors(model)), lambda b: eager(model, b),
+        with span("step.key"):
+            program = _program_key(model) + tag
+            signature = batch.signature()
+            tensors = stamp(model_tensors(model))
+        logits, replayed = graphs.run(program, signature, tensors, lambda b: eager(model, b),
                                       batch, device, keep=(model,))
         return logits.clone() if replayed else logits
 

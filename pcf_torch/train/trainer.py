@@ -24,7 +24,8 @@ signature) before its step. Metrics stay on the device until a print
 boundary, as in pcf_tpu: reading a number back to the host waits for the
 card, which would idle it while the host prepares the next batch.
 cfg.profile_dir traces cfg.profile_steps steps of epoch cfg.profile_epoch
-with torch.profiler.
+with torch.profiler, and keeps the program's spans of the same steps
+(utils/trace) beside the trace, on its clock.
 
 Usage: python -m pcf_torch.train.trainer --config pcf_torch/configs/pcf_10cm.json
        [--set KEY=VALUE ...] [--device cpu]
@@ -38,6 +39,7 @@ e.g. --set total_epoches=1 --set 'level_caps=[49152, 24576, 8192, 2048, 512]'.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -47,6 +49,7 @@ import torch.distributed as dist
 
 from pcf_torch.parallel.mesh import AXIS, all_have, make_mesh, step_seed
 from pcf_torch.train.metrics import AverageMeter, intersection_and_union
+from pcf_torch.utils import trace
 from pcf_torch.utils.logger import get_logger
 from pcf_torch.utils.memory import graph_pool_bytes, hbm_peak_gib, hbm_summary
 
@@ -143,6 +146,8 @@ def _log_step_memory(step_fn, logger):
 
 
 def _start_trace():
+    """torch.profiler on; while it runs, the program's span recorder
+    (utils/trace) records too."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -154,13 +159,18 @@ def _start_trace():
 
 
 def _stop_trace(prof, loss, profile_dir, epoch, steps, logger):
+    """The profiler off; its trace and the spans it saw, on the same clock,
+    written side by side."""
     if loss.is_cuda:
         torch.cuda.synchronize(loss.device)
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"train_epoch{epoch}.trace.json")
     prof.export_chrome_trace(path)
-    logger.info(f"profiler trace of {steps} step(s) of epoch {epoch}: {path}")
+    spans = os.path.join(profile_dir, f"train_epoch{epoch}.spans.json")
+    with open(spans, "w") as f:
+        json.dump(trace.drain(), f)
+    logger.info(f"profiler trace of {steps} step(s) of epoch {epoch}: {path}; spans: {spans}")
 
 
 def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed,
@@ -171,8 +181,9 @@ def train_one_epoch(step_fn, state, loader, mesh, epoch, cfg, logger, rng_seed,
     when None) before its step. Step `it` of the epoch is seeded with
     step_seed(rng_seed, epoch * 100000 + it), pcf_tpu's fold_in. In epoch
     cfg.profile_epoch (default 0), cfg.profile_dir gets a torch.profiler
-    trace of steps 1 to cfg.profile_steps (default 5): the first step, which
-    builds and captures, is left out. Under a mesh the ranks step together:
+    trace of steps 1 to cfg.profile_steps (default 5), train_epoch{N}.trace.json,
+    and the program's spans of the same steps, train_epoch{N}.spans.json: the
+    first step, which builds and captures, is left out. Under a mesh the ranks step together:
     the epoch ends at the first step that some rank has no batch for (the
     tail dropped, as pcf_tpu's grouping drops it), and the metrics, which
     the step reduced over the ranks, are the same on every rank."""

@@ -33,7 +33,3 @@ def time_fn_stats(f, *args, iters: int = 10, reps: int = 3) -> dict:
     ts.sort()
     return {"median": ts[len(ts) // 2], "min": ts[0], "max": ts[-1], "reps": ts}
 
-
-def time_fn(f, *args, iters: int = 10, reps: int = 3) -> float:
-    """Median-of-reps per-iteration wall seconds for f(*args)."""
-    return time_fn_stats(f, *args, iters=iters, reps=reps)["median"]

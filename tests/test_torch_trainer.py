@@ -119,9 +119,12 @@ def test_profile_dir_traces_only_profile_epoch(scene_dir, tmp_path):
                total_epoches=2, eval_freq=5, save_freq=5, profile_dir=str(tmp_path / "prof"),
                profile_epoch=1, profile_steps=1)
     trainer.main(cfg, device="cpu")
-    assert sorted(os.listdir(tmp_path / "prof")) == ["train_epoch1.trace.json"]
+    assert sorted(os.listdir(tmp_path / "prof")) == ["train_epoch1.spans.json",
+                                                     "train_epoch1.trace.json"]
     trace = json.loads((tmp_path / "prof" / "train_epoch1.trace.json").read_text())
     assert trace["traceEvents"]
+    spans = json.loads((tmp_path / "prof" / "train_epoch1.spans.json").read_text())
+    assert [s["name"] for s in spans if s["parent"] is None] == ["step.train"]
 
 
 @pytest.mark.parametrize("key,value", [("spatial_train", True)])
