@@ -140,13 +140,17 @@ ends with a line `[time] phase N: S s`):
              batch's pyramid built on the card (build_pyramid_packed, the
              post_knn loader's caps), each level's per-scene voxel counts
              equal to the host grid_subsampling's and its barycenters within
-             PYRAMID_ATOL, no overflow; each of its 13 kNN calls captured and
-             replayed (ms and distance entries), against the port's kNN on
-             the CPU scene by scene for KNN_CPU_SCENES scenes (distances
-             within KNN_DIST_REL of the scale, neighbour sets equal where not
-             tied at k) and KNN_SAMPLED queries against float64, and timed restricted to
-             each scene's own rows; trainer.main under post_knn, then
-             device_pyramid: B and C launched, A, D and E never, every eager
+             PYRAMID_ATOL, no overflow, the kNN kernel launched 13 times;
+             each of its 13 kNN calls (n_scenes BATCH_SIZE, as the main path
+             makes them) captured and replayed (ms, valid pairs within
+             scenes, bound), against the port's kNN on the CPU scene by
+             scene for KNN_CPU_SCENES scenes (distances within KNN_DIST_REL
+             of the scale, neighbour sets equal where not tied at k) and
+             KNN_SAMPLED queries against float64, and the 13 through the
+             plain version on the card; trainer.main under post_knn, then
+             device_pyramid: B and C launched, A, D and E never, the kNN
+             kernel 13 times in each preparation's eager run and 13 in its
+             capture, none in a replay, every eager
              B and C call against its plain version, finite losses, the
              checkpoint equal to main's state, the prepare graph captured
              once and replayed for every later batch, main's s/it from its
@@ -369,6 +373,7 @@ SOURCES = {
     "window_scatter": ("pcf_torch/csrc/window_scatter.cu", "pcf_tpu/ops/window.py:400"),
     "window_resolve_flat": ("pcf_torch/csrc/window_resolve.cu", "pcf_tpu/ops/window.py:545"),
     "fused_layer_eval": ("pcf_torch/csrc/layer_eval.cu", "pcf_tpu/attic/eval_kernel.py:325"),
+    "knn_scene": ("pcf_torch/csrc/knn_scene.cu", "none (pcf_tpu/ops/knn.py is plain JAX)"),
 }
 
 
@@ -1354,7 +1359,8 @@ def eager_recorders() -> list:
 
 
 KERNEL_LETTERS = {"window_resolve": "A", "pcf_conv_linear": "B", "pconv_pe_conv_linear": "C",
-                  "window_scatter": "D", "window_resolve_flat": "flat", "fused_layer_eval": "E"}
+                  "window_scatter": "D", "window_resolve_flat": "flat", "fused_layer_eval": "E",
+                  "knn_scene": "kNN"}
 
 
 def launch_split(counts, captured) -> str:
@@ -1677,6 +1683,9 @@ KNN_CPU_SCENES = 4
 # differ by more than KNN_TIE_REL (relative); KNN_SAMPLED queries a call
 # against a float64 brute force
 KNN_DIST_REL, KNN_TIE_REL, KNN_SAMPLED = 1e-5, 1e-6, 1024
+# phase 14: f32 operations of a valid (query, ref) pair in the kNN kernel's
+# bound (three differences, three products, two sums)
+KNN_OPS_PER_PAIR = 8
 # phase 14: the device pyramid's barycenters against the host's, after
 # sorting (tests/test_post_knn.py:146)
 PYRAMID_ATOL = 1e-4
@@ -1797,32 +1806,33 @@ def knn_calls(batch):
     return calls
 
 
-def knn_check(batch, k, rng):
-    """Phase 14b: every kNN call of `batch` (on the card) in one CUDA graph
-    each, replayed and timed, its result against the port's kNN on the CPU
-    run scene by scene on the same points (the first KNN_CPU_SCENES
-    scenes), and KNN_SAMPLED queries of every scene against a float64 brute
-    force; each call also timed restricted to its scenes' own
-    rows (the per-scene split). Returns (total replay ms, total own-scene
-    ms, total distance entries)."""
-    from pcf_torch.ops.knn import knn
+def knn_check(batch, k, rng, n_scenes):
+    """Phase 14b: every kNN call of `batch` (on the card, as
+    compute_knn_packed makes it: n_scenes scenes) in one CUDA graph each,
+    replayed and timed, its result against the port's kNN on the CPU run
+    scene by scene on the same points (the first KNN_CPU_SCENES scenes), and
+    KNN_SAMPLED queries of every scene against a float64 brute force; the
+    13 calls then timed once more through the plain version on the card.
+    Returns (total replay ms, the plain version's ms, the valid pairs within
+    scenes, the largest distance error against the CPU)."""
+    from pcf_torch.ops.knn import knn, knn_plain
 
-    tot_ms = tot_own = tot_entries = 0.0
+    tot_ms = tot_pairs = max_err = 0.0
+    calls = []
     for label, ql, rl in knn_calls(batch):
         q, r = batch.points[ql], batch.points[rl]
         qb, rb, rm = batch.bids[ql], batch.bids[rl], batch.masks[rl]
+        calls.append((q, r, dict(query_bid=qb, ref_bid=rb, ref_mask=rm)))
         with torch.no_grad():
             (idx, dist), ms = graph_ms(lambda: knn(q, r, k, query_bid=qb, ref_bid=rb,
-                                                   ref_mask=rm, return_dist=True))
+                                                   ref_mask=rm, n_scenes=n_scenes,
+                                                   return_dist=True))
         idx, dist = idx.cpu().numpy(), dist.cpu().numpy()
         qm = batch.masks[ql].cpu().numpy()
         qbn, rbn, rmn = qb.cpu().numpy(), rb.cpu().numpy(), rm.cpu().numpy()
         qp, rp = q.cpu(), r.cpu()
         scenes = np.unique(qbn[qm])[:KNN_CPU_SCENES]
         scale = float(dist[qm].max())
-        own = [(torch.from_numpy(np.nonzero(qm & (qbn == sc))[0]).to(q.device),
-                torch.from_numpy(np.nonzero(rmn & (rbn == sc))[0]).to(q.device))
-               for sc in np.unique(qbn[qm])]
         worst = checked = tied = 0
         for sc in scenes:
             rows = np.nonzero(qm & (qbn == sc))[0]
@@ -1858,27 +1868,29 @@ def knn_check(batch, k, rng):
         assert f64_err <= KNN_DIST_REL * scale, (
             f"[pyramid] kNN {label}: distances {f64_err:.3e} from float64 (scale {scale:.3e})")
         assert not bad, f"[pyramid] kNN {label}: {bad} sampled rows differ from float64"
-        # the same call restricted to each query's own scene's rows
-        with torch.no_grad():
-            _, own_ms = graph_ms(lambda: [knn(q[a], r[b], k, return_dist=True)
-                                          for a, b in own])
-        entries = q.shape[0] * r.shape[0]
-        own_entries = sum(a.numel() * b.numel() for a, b in own)
-        tot_ms, tot_own, tot_entries = tot_ms + ms, tot_own + own_ms, tot_entries + entries
-        log(f"[pyramid] kNN {label}: M={q.shape[0]} N={r.shape[0]} k={k}, {entries:.3e} "
-            f"distance entries, replay {ms:.3f} ms ({entries / ms * 1e3 / 1e12:.3f} T "
-            f"entries/s); against the CPU per scene: "
-            f"max distance err {worst:.3e} (scale {scale:.3e}), {checked} rows' sets equal, "
-            f"{tied} rows tied at k; float64 on {len(sample)} queries: {f64_err:.3e}; "
-            f"restricted to each scene's own rows: {own_entries:.3e} entries, {own_ms:.3f} ms")
-    return tot_ms, tot_own, tot_entries
+        # the valid (query, ref) pairs within scenes: what the kernel scans
+        in_range = (qbn >= 0) & (qbn < n_scenes)
+        per_q = np.bincount(qbn[in_range], minlength=n_scenes)
+        per_r = np.bincount(rbn[rmn & (rbn >= 0) & (rbn < n_scenes)], minlength=n_scenes)
+        pairs = float((per_q * per_r).sum())
+        bound = pairs * KNN_OPS_PER_PAIR / PEAK_OPS[torch.float32] * 1e3
+        tot_ms, tot_pairs, max_err = tot_ms + ms, tot_pairs + pairs, max(max_err, worst)
+        log(f"[pyramid] kNN {label}: M={q.shape[0]} N={r.shape[0]} k={k}, {pairs:.3e} valid "
+            f"pairs within scenes, replay {ms:.3f} ms (bound {bound:.4f} ms); against the CPU "
+            f"per scene: max distance err {worst:.3e} (scale {scale:.3e}), {checked} rows' "
+            f"sets equal, {tied} rows tied at k; float64 on {len(sample)} queries: {f64_err:.3e}")
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: [knn_plain(q, r, k, **kw) for q, r, kw in calls],
+                           reps=1, warmup=0)
+    return tot_ms, plain_ms, tot_pairs, max_err
 
 
 def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
     """Phase 14: the device pyramid and voting on the card (see the module
     docstring); the entry points take their default device, the checks run
     on `device`. `rooms`: synth_rooms' PYRAMID_TRAIN_ROOMS +
-    PYRAMID_VAL_ROOMS rooms, else made here."""
+    PYRAMID_VAL_ROOMS rooms, else made here. Returns the kNN kernel's row of
+    the `kernels` line."""
     from pcf_torch.data import post_knn as post_knn_mod
     from pcf_torch.data.scannet import getdataLoaders
     from pcf_torch.entry import build
@@ -1898,6 +1910,16 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
 
     zero = ("window_resolve", "window_scatter", "fused_layer_eval", "window_resolve_flat")
     summary = {}
+    knn_fn = wrappers["knn_scene"]
+
+    def knn_gate(label, counts, captured, captures):
+        """The kNN kernel's launches over a run whose preparation was
+        captured `captures` times: n_sets in each first call's eager run,
+        n_sets in each capture, none in a replay."""
+        eager, caught = counts["knn_scene"] - captured["knn_scene"], captured["knn_scene"]
+        assert eager == caught == n_sets * captures, (
+            f"{label}: kNN launched {eager} times eagerly and {caught} in captures, "
+            f"{n_sets} a preparation, {captures} captured")
 
     def kernels_gate(label, rec):
         counts, captured = rec.counts(), dict(rec.in_capture)
@@ -1945,9 +1967,13 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
         cfg_d.update(post_knn=False, device_pyramid=True, device_level_caps=dev_caps)
         b0 = first.to(device)
         args = post_knn_mod.static_args(cfg_d, b0.points[0].shape[0])
+        n_sets = 3 * len(cfg_d.grid_size) - 2
+        knn_fn.launches = 0
         with torch.no_grad():
             full, overflow = post_knn_mod.build_pyramid_packed(b0, *args[1:])
         assert not bool(overflow), "the device pyramid overflowed its caps"
+        assert knn_fn.launches == n_sets, (
+            f"the device pyramid launched the kNN kernel {knn_fn.launches} times, not {n_sets}")
         pts0, m0, bid0 = (first.points[0].numpy(), first.masks[0].numpy(),
                           first.bids[0].numpy())
         scenes = np.unique(bid0[m0])
@@ -1989,13 +2015,19 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
             _, prep_ms = graph_ms(lambda: post_knn_mod.build_pyramid_packed(b0, *args[1:]))
 
         # -- b: every kNN call of that batch --------------------------------
-        knn_ms, own_ms, entries = knn_check(full, int(cfg_d.K_self[0]), rng)
+        knn_ms, plain_ms, pairs, knn_err = knn_check(full, int(cfg_d.K_self[0]), rng,
+                                                     int(cfg_d.BATCH_SIZE))
+        bound_ms = pairs * KNN_OPS_PER_PAIR / PEAK_OPS[torch.float32] * 1e3
         log(f"[pyramid] one batch's device pyramid (replays): {prep_ms:.3f} ms, of which grid "
-            f"subsampling {sub_ms:.3f} ms and the 13 kNN calls {knn_ms:.3f} ms "
-            f"({knn_ms / prep_ms:.1%}); {entries:.3e} distance entries; each query restricted "
-            f"to its own scene's rows: {own_ms:.3f} ms")
-        summary.update(prep_ms=prep_ms, sub_ms=sub_ms, knn_ms=knn_ms, own_ms=own_ms,
-                       entries=entries)
+            f"subsampling {sub_ms:.3f} ms and the {n_sets} kNN calls {knn_ms:.3f} ms "
+            f"({knn_ms / prep_ms:.1%}; the plain version {plain_ms:.1f} ms); {pairs:.3e} valid "
+            f"pairs within scenes, bound {bound_ms:.4f} ms by f32 operations")
+        summary.update(prep_ms=prep_ms, sub_ms=sub_ms, knn_ms=knn_ms, knn_plain_ms=plain_ms,
+                       knn_pairs=pairs)
+        knn_row = dict(name="knn_scene", route="cuda", source=SOURCES["knn_scene"][0],
+                       replaces=SOURCES["knn_scene"][1], launches=n_sets, max_abs_err=knn_err,
+                       ms=knn_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
+                       library_ms=None, dtype="float32")
         lap("pyramid and kNN checks")
         del full, b0, first
         gc.collect()
@@ -2033,6 +2065,7 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
                 assert prep.graphs.captures == 1 and prep.graphs.replays == n_prep - 1, (
                     f"{label}: prepare captured {prep.graphs.captures} times, replayed "
                     f"{prep.graphs.replays} for {n_prep} batches")
+                knn_gate(label, counts, captured, prep.graphs.captures)
                 lines = [json.loads(x) for x in open(os.path.join(exp, "metrics.jsonl"))]
                 losses = [r["train_loss"] for r in lines if "train_loss" in r]
                 assert losses and all(math.isfinite(v) for v in losses), losses
@@ -2085,6 +2118,8 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
             recs = eager_recorders()
             miou, mean_s = evaluate(cfg_e, pretrain_path=os.path.join(exp, "model"))
             counts, captured = kernels_gate("evaluate, device_pyramid", rec)
+            knn_gate("evaluate, device_pyramid", counts, captured,
+                     prec.preps[-1].graphs.captures)
             ev = rec.steps["eval"][-1]
             held_to_plain("[pyramid]", "evaluate, device_pyramid", recs, counts, captured,
                           valid_rows(ev.calls))
@@ -2126,7 +2161,9 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
             vmiou = evaluate_voting(cfg_v, pretrain_path=os.path.join(exp, "model"),
                                     vote_num=PYRAMID_VOTES)
             vwall = time.perf_counter() - t0
-            kernels_gate("evaluate_voting, device_pyramid", rec)
+            counts, _ = kernels_gate("evaluate_voting, device_pyramid", rec)
+            # eager preparations and captures alike: n_sets launches each
+            assert counts["knn_scene"] > 0 and counts["knn_scene"] % n_sets == 0, counts
             vlog = [x for x in open(os.path.join(cfg_v.eval_path, "log.txt"))
                     if "Voting wall" in x][-1].split("INFO: ")[-1].strip()
             probs = {f: np.load(os.path.join(cfg_v.eval_path, f))
@@ -2164,6 +2201,7 @@ def pyramid_phase(wrappers, smi, device="cuda", rooms=None):
             prec.restore()
     log(f"[pyramid] summary ({smi}): {json.dumps(summary, default=str)}; phase 14 "
         f"{time.time() - t_phase:.1f} s ({seconds})")
+    return knn_row
 
 
 # phase 15's rooms: tools/make_synth_dataset.py, 4 validation rooms at its
@@ -3471,6 +3509,7 @@ def main() -> int:
     from pcf_torch.entry import build, build_training, flagship_batch
     from pcf_torch.nn.layers import PCFLayer, PointConv, PointConvStridePE, PointConvTransposePE
     from pcf_torch.ops.kernels import build as kbuild
+    from pcf_torch.ops.kernels.knn_scene import knn_scene
     from pcf_torch.ops.kernels.layer_eval import (fused_layer_eval, fused_layer_eval_plain,
                                                   launch_shape as layer_eval_shape)
     from pcf_torch.ops.kernels.pconv_fused import (
@@ -4160,7 +4199,7 @@ def main() -> int:
     phase_time(12)
 
     every = dict(all_kernels, window_resolve_flat=window_resolve_flat,
-                 fused_layer_eval=fused_layer_eval)
+                 fused_layer_eval=fused_layer_eval, knn_scene=knn_scene)
     kept = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     rooms = tempfile.mkdtemp(prefix="chip_smoke_rooms_")
     started = None
@@ -4179,7 +4218,7 @@ def main() -> int:
         secs = synth_rooms(rooms, PYRAMID_TRAIN_ROOMS, PYRAMID_VAL_ROOMS)
         log(f"[pyramid] {PYRAMID_TRAIN_ROOMS} + {PYRAMID_VAL_ROOMS} synthetic rooms written in "
             f"{secs:.1f} s (phases 14 and 19 read them)")
-        pyramid_phase(every, smi, rooms=rooms)
+        results[("knn_scene", "float32")] = pyramid_phase(every, smi, rooms=rooms)
         phase_time(14)
 
         # ---- 15 serve: export, the serving CLI, the exported programs ------
@@ -4222,10 +4261,10 @@ def main() -> int:
         shutil.rmtree(rooms, ignore_errors=True)
 
     log(f"[done] {time.time() - t_start:.1f} s")
-    # the flat resolve reads geometry, f32 in either dtype: its float32 row
-    # stands in both lines
-    order = list(all_kernels) + ["window_resolve_flat", "fused_layer_eval"]
-    dtypes = {"window_resolve_flat": "float32"}
+    # the flat resolve reads geometry, f32 in either dtype, and the kNN
+    # kernel points: their float32 rows stand in both lines
+    order = list(all_kernels) + ["window_resolve_flat", "fused_layer_eval", "knn_scene"]
+    dtypes = {"window_resolve_flat": "float32", "knn_scene": "float32"}
     log("[kernels float32] " + json.dumps([results[(k, "float32")] for k in order]))
     log(smi)
     print(json.dumps({"kernels": [results[(k, dtypes.get(k, "bfloat16"))] for k in order]}))

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from pcf_torch.core.batching import PackedPyramid
+from pcf_torch.ops.kernels import knn_scene
 from pcf_torch.ops.knn import knn
 from pcf_torch.ops.subsample import grid_subsample_fixed
 from pcf_torch.parallel.graphs import StepGraphs
@@ -27,27 +28,37 @@ from pcf_torch.utils.trace import span
 
 
 def compute_knn_packed(batch: PackedPyramid, k_self: tuple, k_forward: tuple,
-                       k_propagate: tuple, method: str = "approx") -> PackedPyramid:
+                       k_propagate: tuple, method: str = "approx",
+                       n_scenes: int | None = None) -> PackedPyramid:
     """The batch with edges_self / forward / propagate computed on its
-    device. method "approx" computes the exact kNN (ops/knn.py)."""
-    n_levels = len(batch.points)
+    device. method "approx" computes the exact kNN (ops/knn.py). On a card
+    each level's rows are grouped by scene once as references and once as
+    queries (ops/kernels/knn_scene.group) for the edge sets that read them;
+    n_scenes bounds the scene ids there (default: the largest level's rows)."""
+    if method not in ("exact", "approx"):
+        raise ValueError(f"compute_knn_packed: unknown method {method!r}")
+    pts, bids, masks = batch.points, batch.bids, batch.masks
+    n_levels = len(pts)
+    if pts[0].device.type == "cuda":
+        S = n_scenes if n_scenes is not None else max(p.shape[0] for p in pts)
+        refs = [knn_scene.group(pts[i], bids[i], masks[i], S) for i in range(n_levels)]
+        queries = [knn_scene.group(pts[i], bids[i], None, S) for i in range(n_levels)]
+
+        def edges(q, r, k):
+            return knn_scene.search(queries[q], refs[r], int(k), self_search=q == r)
+    else:
+        def edges(q, r, k):
+            return knn(pts[q], pts[r], int(k), query_bid=bids[q], ref_bid=bids[r],
+                       ref_mask=masks[r], method=method)
+
     edges_self, edges_forward, edges_propagate = [], [], []
     for lvl in range(n_levels):
-        edges_self.append(knn(
-            batch.points[lvl], batch.points[lvl], int(k_self[lvl]),
-            query_bid=batch.bids[lvl], ref_bid=batch.bids[lvl],
-            ref_mask=batch.masks[lvl], method=method))
+        edges_self.append(edges(lvl, lvl, k_self[lvl]))
         if lvl < n_levels - 1:
             # forward: queries at level l+1, refs at level l
-            edges_forward.append(knn(
-                batch.points[lvl + 1], batch.points[lvl], int(k_forward[lvl + 1]),
-                query_bid=batch.bids[lvl + 1], ref_bid=batch.bids[lvl],
-                ref_mask=batch.masks[lvl], method=method))
+            edges_forward.append(edges(lvl + 1, lvl, k_forward[lvl + 1]))
             # propagate: queries at level l, refs at level l+1
-            edges_propagate.append(knn(
-                batch.points[lvl], batch.points[lvl + 1], int(k_propagate[lvl]),
-                query_bid=batch.bids[lvl], ref_bid=batch.bids[lvl + 1],
-                ref_mask=batch.masks[lvl + 1], method=method))
+            edges_propagate.append(edges(lvl, lvl + 1, k_propagate[lvl]))
     return dataclasses.replace(batch, edges_self=tuple(edges_self),
                                edges_forward=tuple(edges_forward),
                                edges_propagate=tuple(edges_propagate))
@@ -77,7 +88,8 @@ def build_pyramid_packed(batch: PackedPyramid, grid_sizes: tuple, level_caps: tu
         overflow = overflow | sub["overflow"]
     full = dataclasses.replace(batch, points=tuple(points), norms=tuple(norms),
                                masks=tuple(masks), bids=tuple(bids))
-    return compute_knn_packed(full, k_self, k_forward, k_propagate, method=method), overflow
+    return compute_knn_packed(full, k_self, k_forward, k_propagate, method=method,
+                              n_scenes=n_scenes), overflow
 
 
 def device_level_caps(cfg, cap0: int) -> tuple:
@@ -107,22 +119,25 @@ def _ks(cfg) -> tuple:
 def static_args(cfg, cap0: int) -> tuple:
     """What the preparation of a batch whose level 0 has cap0 rows reads
     from cfg, as one hashable key: the mode, then for device_pyramid the
-    grid sizes, the caps and the scene count, then the k's and the method."""
+    grid sizes, the caps and the scene count, for post_knn the scene count
+    (None without cfg.BATCH_SIZE), then the k's and the method."""
     ks = _ks(cfg) + (cfg.get("knn_method", "approx"),)
     if cfg.get("device_pyramid"):
         return ("device_pyramid", tuple(float(g) for g in cfg.grid_size),
                 device_level_caps(cfg, cap0), int(cfg.BATCH_SIZE)) + ks
-    return ("post_knn",) + ks
+    scenes = cfg.get("BATCH_SIZE")
+    return ("post_knn", None if scenes is None else int(scenes)) + ks
 
 
 def prepare_flagged(batch: PackedPyramid, cfg):
     """(full batch, overflow flag or None), the flag left on the device.
     device_pyramid: build_pyramid_packed, whose scene count is
-    cfg.BATCH_SIZE; post_knn: compute_knn_packed and None."""
+    cfg.BATCH_SIZE; post_knn: compute_knn_packed, with the same scene
+    count, and None."""
     args = static_args(cfg, batch.points[0].shape[0])
     if args[0] == "device_pyramid":
         return build_pyramid_packed(batch, *args[1:])
-    return compute_knn_packed(batch, *args[1:]), None
+    return compute_knn_packed(batch, *args[2:], n_scenes=args[1]), None
 
 
 def check_overflow(overflow, cfg) -> None:

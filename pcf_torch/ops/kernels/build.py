@@ -27,7 +27,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("window_resolve", "window_scatter", "pcf_conv_linear", "layer_eval")
+SOURCES = ("window_resolve", "window_scatter", "pcf_conv_linear", "layer_eval", "knn_scene")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # translation units per source, compiled in parallel: layer_eval.cu's eight

@@ -1,9 +1,11 @@
-"""Brute-force kNN as tiled distance rows plus top-k, on the batch's device:
-the port of pcf_tpu/ops/knn.py.
+"""kNN over the packed multi-cloud layout: the port of pcf_tpu/ops/knn.py.
 
-It works on the packed multi-cloud layout through per-point batch ids, so
-neighbours never cross cloud boundaries. Two stages per query tile, as in
-pcf_tpu:
+Per-point batch ids keep neighbours within their cloud. `knn` dispatches on
+the tensors' device: on a card it launches the hand-written kernel of
+ops/kernels/knn_scene.py (each query scans only its own scene's valid rows,
+keeping its k nearest in registers), or raises; elsewhere it runs the plain
+version, `knn_plain`, brute force as tiled distance rows plus top-k. Two
+stages per query tile there, as in pcf_tpu:
   * a coarse ranking: the score 2 q.r - |r|^2, monotone in -|q - r|^2, from
     one f32 [q_tile, 3] x [3, N] product (TF32 is off for the package,
     pcf_torch/__init__.py), with invalid refs (masked, or of another cloud)
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from pcf_torch.ops.kernels.knn_scene import knn_scene
+
 _BIG = 1e10
 # cap on the [q_tile, N] score row (f32 elements) per tile; q_tile halves
 # while a tile's row would exceed it (tests monkeypatch it)
@@ -37,22 +41,38 @@ def _pad_rows(x: torch.Tensor, n: int, value=0) -> torch.Tensor:
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int, *,
         query_bid: torch.Tensor | None = None, ref_bid: torch.Tensor | None = None,
         ref_mask: torch.Tensor | None = None, q_tile: int = 512, method: str = "exact",
-        return_dist: bool = False):
+        return_dist: bool = False, n_scenes: int | None = None):
     """k-nearest neighbours of `query` [M, D] among `ref` [N, D] (squared L2).
 
     query_bid / ref_bid: optional [M] / [N] cloud ids of a packed batch; a
     neighbour is valid only where they match. ref_mask: optional [N] bool,
-    False on padding rows. q_tile: query rows per tile, halved (not below
-    256) while q_tile * N exceeds _ROW_BUDGET. method: "exact" or "approx";
-    both compute the exact top-k, as lax.approx_max_k does off the TPU.
+    False on padding rows. q_tile: query rows per tile of the plain version,
+    halved (not below 256) while q_tile * N exceeds _ROW_BUDGET. method:
+    "exact" or "approx"; both compute the exact top-k, as lax.approx_max_k
+    does off the TPU. n_scenes: on a card, the bound on the cloud ids (a row
+    whose id is outside [0, n_scenes) has no cloud); without it the ref row
+    count (ops/kernels/knn_scene.scene_count).
 
     Returns idx [M, k] int32, by ascending distance (self first for
     self-queries), and with return_dist the squared distances [M, k] f32.
     The rows of a query whose cloud has no valid ref (padding, bid -1) are
-    arbitrary: callers mask them.
+    arbitrary: callers mask them. On a card, D must be 3 and k at most 32.
     """
     if method not in ("exact", "approx"):
         raise ValueError(f"knn: unknown method {method!r}")
+    if query.device.type == "cuda":
+        return knn_scene(query, ref, k, query_bid=query_bid, ref_bid=ref_bid,
+                         ref_mask=ref_mask, n_scenes=n_scenes, return_dist=return_dist)
+    return knn_plain(query, ref, k, query_bid=query_bid, ref_bid=ref_bid, ref_mask=ref_mask,
+                     q_tile=q_tile, return_dist=return_dist)
+
+
+def knn_plain(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+              query_bid: torch.Tensor | None = None, ref_bid: torch.Tensor | None = None,
+              ref_mask: torch.Tensor | None = None, q_tile: int = 512,
+              return_dist: bool = False):
+    """The plain version of knn, on any device: tiled score rows against
+    every ref row, two top-k stages per tile (the module docstring)."""
     M, D = query.shape
     N = ref.shape[0]
     while q_tile > 256 and q_tile * N > _ROW_BUDGET:

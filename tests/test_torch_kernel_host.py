@@ -1,11 +1,15 @@
 """Host-side logic of the port's kernels that runs without a card: kernel E's
 packed weights (their layout and the cache that keeps them between calls),
-kernel A's launch plan (route, lanes per edge, grid and shared memory), and
-the workspaces that the wrappers of kernels B, C and D size on the host for
-the kernels' fixed-order sums.
+kernel A's launch plan (route, lanes per edge, grid and shared memory), the
+workspaces that the wrappers of kernels B, C and D size on the host for
+the kernels' fixed-order sums, and the kNN kernel's plan (the list length
+it instantiates and its scene count) with the dispatch of CPU tensors to
+the plain kNN by ops/knn.knn and data/post_knn.compute_knn_packed.
 
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels_gpu.py)."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ from pcf_torch.ops.kernels.layer_eval import packed_weights
 from pcf_torch.ops.kernels.pconv_fused import workspace_bytes
 from pcf_torch.ops.kernels.window_resolve import launch_plan, plan_for
 from pcf_torch.ops.kernels.window_scatter import piece_len, workspace_layout
+from pcf_torch.ops.kernels import knn_scene as knn_mod
 
 
 def _pairs(rng, dims):
@@ -221,3 +226,121 @@ def test_window_scatter_workspace_covers_its_sections(n_rows, edges, C):
     assert cap == lay["cap"] and cap in (32, 64, 128, 256)
     assert cap >= min(4 * (edges // n_rows), 256) or cap == 32
     assert lay["tiles"] == -(-edges // 2048) and lay["pieces"] == -(-edges // cap)
+
+
+@pytest.mark.parametrize("k,K", [(1, 16), (5, 16), (16, 16), (17, 32), (32, 32)])
+def test_knn_scene_instance_of_k(k, K):
+    """The kNN kernel keeps the smallest list of INSTANCES at least k."""
+    assert knn_mod.instance_k(k) == K
+
+
+@pytest.mark.parametrize("k", [0, 33, 64])
+def test_knn_scene_refuses_k_beyond_its_instances(k):
+    with pytest.raises(ValueError, match=f"k={k}"):
+        knn_mod.instance_k(k)
+
+
+def test_knn_scene_scene_count():
+    """S: 1 without reference scene ids, the caller's n_scenes, else the
+    reference row count; n_scenes below 1 refused."""
+    assert knn_mod.scene_count(16, False, 500) == 1
+    assert knn_mod.scene_count(16, True, 500) == 16
+    assert knn_mod.scene_count(None, True, 2048) == 2048
+    with pytest.raises(ValueError, match="n_scenes"):
+        knn_mod.scene_count(0, True, 10)
+
+
+def test_prepare_passes_the_scene_count(monkeypatch):
+    """Under post_knn the preparation's key carries cfg.BATCH_SIZE, and
+    compute_knn_packed gets it as n_scenes (None without BATCH_SIZE)."""
+    from pcf_torch.config import Config
+    from pcf_torch.data import post_knn
+
+    seen = []
+    monkeypatch.setattr(post_knn, "compute_knn_packed",
+                        lambda batch, *a, **kw: seen.append((a, kw)) or batch)
+    cfg = Config(grid_size=[0.1, 0.2], K_self=16, K_forward=16, K_propagate=16, BATCH_SIZE=4,
+                 post_knn=True)
+    assert post_knn.static_args(cfg, 1024) == ("post_knn", 4, (16, 16), (16, 16), (16, 16),
+                                               "approx")
+    batch = SimpleNamespace(points=[torch.zeros(1024, 3)])
+    post_knn.prepare_flagged(batch, cfg)
+    del cfg["BATCH_SIZE"]
+    post_knn.prepare_flagged(batch, cfg)
+    assert seen == [(((16, 16), (16, 16), (16, 16), "approx"), {"n_scenes": 4}),
+                    (((16, 16), (16, 16), (16, 16), "approx"), {"n_scenes": None})]
+
+
+def _refuse_the_kernel(monkeypatch):
+    """The kernel's wrapper, where ops/knn and data/post_knn reach it, raises."""
+    from pcf_torch.ops import knn as knn_ops
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel's wrapper was called for CPU tensors")
+
+    monkeypatch.setattr(knn_ops, "knn_scene", refuse)
+    monkeypatch.setattr(knn_mod, "group", refuse)
+    monkeypatch.setattr(knn_mod, "search", refuse)
+
+
+def _pyramid_without_edges():
+    """A packed batch of two scenes' host pyramids (2 levels), no edges."""
+    from pcf_torch.core.batching import pack_scenes
+    from pcf_torch.data.pyramid import subsample
+    from pcf_torch.data.synthetic import synthetic_scene
+
+    items = []
+    for seed in (1, 2):
+        coord, norm, feats, labels = synthetic_scene(400, extent=3.0, seed=seed)
+        pts, nrm = subsample(coord.astype(np.float32), norm.astype(np.float32),
+                             grid_size=[0.1, 0.3])
+        items.append({"point_list": pts, "surface_normal_list": nrm,
+                      "feature_list": feats.astype(np.float32),
+                      "label_list": labels.astype(np.int32)})
+    return pack_scenes(items, bucket_multiple=64)
+
+
+def test_knn_of_cpu_tensors_runs_the_plain_version(monkeypatch):
+    """ops/knn.knn on CPU tensors is knn_plain, bit for bit, and never
+    reaches the kernel's wrapper."""
+    from pcf_torch.ops import knn as knn_ops
+
+    _refuse_the_kernel(monkeypatch)
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.normal(size=(90, 3)).astype(np.float32))
+    bid = torch.from_numpy(np.repeat(np.arange(3), 30).astype(np.int32))
+    mask = torch.ones(90, dtype=torch.bool)
+    kw = dict(query_bid=bid, ref_bid=bid, ref_mask=mask, return_dist=True)
+    got = knn_ops.knn(pts, pts, 6, n_scenes=3, q_tile=32, **kw)
+    want = knn_ops.knn_plain(pts, pts, 6, q_tile=32, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("method", ["exact", "approx"])
+def test_compute_knn_packed_of_cpu_tensors_runs_the_plain_version(monkeypatch, method):
+    """compute_knn_packed on CPU tensors makes each edge set with
+    ops/knn.knn_plain, bit for bit, and never reaches the kernel's wrapper;
+    either method is the exact kNN."""
+    from pcf_torch.data import post_knn
+    from pcf_torch.ops.knn import knn_plain
+
+    _refuse_the_kernel(monkeypatch)
+    b = _pyramid_without_edges()
+    got = post_knn.compute_knn_packed(b, (8, 6), (8, 5), (4, 8), method=method, n_scenes=2)
+
+    def plain(q, r, k):
+        return knn_plain(b.points[q], b.points[r], k, query_bid=b.bids[q], ref_bid=b.bids[r],
+                         ref_mask=b.masks[r])
+
+    want = dict(edges_self=(plain(0, 0, 8), plain(1, 1, 6)), edges_forward=(plain(1, 0, 5),),
+                edges_propagate=(plain(0, 1, 4),))
+    for name, sets in want.items():
+        assert all(torch.equal(a, b) for a, b in zip(getattr(got, name), sets)), name
+
+
+def test_compute_knn_packed_refuses_an_unknown_method():
+    from pcf_torch.data import post_knn
+
+    with pytest.raises(ValueError, match="unknown method 'nearest'"):
+        post_knn.compute_knn_packed(_pyramid_without_edges(), (2, 2), (2, 2), (2, 2),
+                                    method="nearest")

@@ -977,6 +977,222 @@ def test_prepare_graph_replays_the_eager_preparation(cuda):
         prep(_packed_level0(3), cuda)
 
 
+# ---- the kNN within scenes (ops/kernels/knn_scene.py) against the plain version ----
+# Distances in the kernel may be FMA-contracted: within KNN_RTOL of the plain
+# version's; neighbour sets equal wherever the k-th and (k+1)-th distances
+# differ by more than that.
+
+KNN_RTOL = 1e-6
+
+
+def _knn_both(cuda, q, r, k, **kw):
+    """(plain on the CPU: idx, dist, (k+1)-th dist or None) and (the card's
+    idx, dist), numpy; the card's call made twice and held bit for bit."""
+    from pcf_torch.ops.knn import knn
+
+    cpu = {n: v for n, v in kw.items() if n != "n_scenes"}
+    n_ref = r.shape[0] if kw.get("ref_mask") is None else int(kw["ref_mask"].sum())
+    ci, cd = knn(q, r, k, return_dist=True, **cpu)
+    nxt = knn(q, r, k + 1, return_dist=True, **cpu)[1][:, k] if n_ref > k else None
+    dev = {n: v.to(cuda) if isinstance(v, torch.Tensor) else v for n, v in kw.items()}
+    qd, rd = q.to(cuda), r.to(cuda)
+    if q is r:
+        qd = rd
+    gi, gd = knn(qd, rd, k, return_dist=True, **dev)
+    gi2, gd2 = knn(qd, rd, k, return_dist=True, **dev)
+    assert torch.equal(gi, gi2) and torch.equal(gd, gd2), "two launches differ"
+    assert gi.dtype == torch.int32 and gd.dtype == torch.float32 and gi.shape == (q.shape[0], k)
+    return ((ci.numpy(), cd.numpy(), None if nxt is None else nxt.numpy()),
+            (gi.cpu().numpy(), gd.cpu().numpy()))
+
+
+def _knn_check(cpu, card, rows):
+    """Distances within KNN_RTOL, sorted; index sets equal where the k-th
+    and (k+1)-th plain distances are apart; every index in range."""
+    (ci, cd, nxt), (gi, gd) = cpu, card
+    np.testing.assert_allclose(gd[rows], cd[rows], rtol=KNN_RTOL, atol=0)
+    assert (np.diff(gd[rows], axis=1) >= 0).all()
+    if nxt is not None:
+        distinct = nxt[rows] - cd[rows][:, -1] > KNN_RTOL * nxt[rows]
+        same = (np.sort(gi[rows], 1) == np.sort(ci[rows], 1)).all(1)
+        assert same[distinct].all(), np.nonzero(~same & distinct)[0][:5]
+        assert distinct.mean() > 0.9
+    assert gi.min() >= 0
+
+
+@pytest.mark.parametrize("k", [16, 5, 20])
+def test_knn_scene_packed_contiguous_scenes(cuda, k):
+    """Self edges of a packed batch (4 scenes one after another, padding
+    rows with scene id -1): each valid row first among its own neighbours;
+    the padding rows' neighbours in range at distance 1e10, as the plain
+    version's; n_scenes given or left to the row bound alike. k 5 and 20
+    write part of the 16 and 32 instantiations' lists."""
+    from pcf_torch.ops.knn import knn
+
+    b = _packed_level0(0)
+    p, bid, m = b.points[0], b.bids[0], b.masks[0]
+    cpu, card = _knn_both(cuda, p, p, k, query_bid=bid, ref_bid=bid, ref_mask=m, n_scenes=4)
+    mn = m.numpy()
+    _knn_check(cpu, card, mn)
+    gi, gd = card
+    assert (gi[mn, 0] == np.nonzero(mn)[0]).all() and (gd[mn, 0] == 0).all()
+    assert (gi[~mn] < p.shape[0]).all() and (gd[~mn] == 1e10).all() and (cpu[1][~mn] == 1e10).all()
+    pd = p.to(cuda)
+    bound = knn(pd, pd, k, query_bid=bid.to(cuda), ref_bid=bid.to(cuda), ref_mask=m.to(cuda))
+    assert np.array_equal(bound.cpu().numpy(), gi)
+
+
+def test_knn_scene_interleaved_scenes(cuda):
+    """The same rows shuffled, so the scene ids interleave (as the device
+    pyramid's levels above 0 do): the plain version's neighbours, mapped
+    through the shuffle, and self first."""
+    b = _packed_level0(1)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(b.points[0].shape[0]))
+    p, bid, m = b.points[0][perm].contiguous(), b.bids[0][perm], b.masks[0][perm]
+    cpu, card = _knn_both(cuda, p, p, 16, query_bid=bid, ref_bid=bid, ref_mask=m, n_scenes=4)
+    mn = m.numpy()
+    _knn_check(cpu, card, mn)
+    assert (card[0][mn, 0] == np.nonzero(mn)[0]).all()
+    assert (bid.numpy()[card[0][mn]] == bid.numpy()[mn][:, None]).all()
+
+
+def test_knn_scene_fewer_refs_than_k(cuda):
+    """A scene with 5 valid refs: its queries' 16 columns are those 5, then
+    the nearest repeated, as the plain version's, bit for bit in the index."""
+    b = _packed_level0(2)
+    p, bid = b.points[0], b.bids[0]
+    m = b.masks[0].clone()
+    rows2 = torch.nonzero(bid == 2)[:, 0]
+    m[rows2[5:]] = False
+    cpu, card = _knn_both(cuda, p, p, 16, query_bid=bid, ref_bid=bid, ref_mask=m, n_scenes=4)
+    few = rows2.numpy()
+    assert np.array_equal(card[0][few], cpu[0][few])
+    np.testing.assert_allclose(card[1][few], cpu[1][few], rtol=KNN_RTOL, atol=0)
+    assert (card[0][few][:, 5:] == card[0][few][:, :1]).all()
+    others = m.numpy() & (bid.numpy() != 2)
+    _knn_check((cpu[0], cpu[1], None), card, others)
+
+
+def test_knn_scene_queries_without_a_scene(cuda):
+    """Queries whose scene id is -1 or beyond n_scenes: row 0 at distance
+    1e10; the rest as the plain version's."""
+    b = _packed_level0(3)
+    p, bid, m = b.points[0], b.bids[0], b.masks[0]
+    qbid = bid.clone()
+    qbid[::7] = -1
+    qbid[1::11] = 9
+    cpu, card = _knn_both(cuda, p, p, 16, query_bid=qbid, ref_bid=bid, ref_mask=m, n_scenes=4)
+    none = (qbid.numpy() < 0) | (qbid.numpy() >= 4)
+    assert (card[0][none] == 0).all() and (card[1][none] == 1e10).all()
+    _knn_check(cpu, card, m.numpy() & ~none)
+
+
+@pytest.mark.parametrize("self_query", [True, False], ids=["self", "other"])
+def test_knn_scene_one_cloud_without_ids(cuda, self_query):
+    """One cloud, no scene ids and no mask: self edges, and queries of
+    another size against it."""
+    g = np.random.default_rng(4)
+    r = torch.from_numpy(g.uniform(0, 5, size=(7000, 3)).astype(np.float32))
+    q = r if self_query else torch.from_numpy(g.uniform(0, 5, size=(3001, 3)).astype(np.float32))
+    cpu, card = _knn_both(cuda, q, r, 16)
+    _knn_check(cpu, card, slice(None))
+    if self_query:
+        assert (card[0][:, 0] == np.arange(7000)).all()
+
+
+def test_knn_scene_forward_pair(cuda):
+    """Queries of another packed batch (other sizes, the same 4 scenes, as a
+    forward edge set's coarser level) against a packed level."""
+    r = _packed_level0(5)
+    q = _packed_level0(6, n=1200)
+    cpu, card = _knn_both(cuda, q.points[0], r.points[0], 16, query_bid=q.bids[0],
+                          ref_bid=r.bids[0], ref_mask=r.masks[0], n_scenes=4)
+    _knn_check(cpu, card, q.masks[0].numpy())
+
+
+def test_knn_scene_refuses_what_it_does_not_take(cuda):
+    """k above the largest instantiation, points of another width, a CPU
+    mask with CUDA points."""
+    from pcf_torch.ops.kernels.knn_scene import knn_scene
+
+    p = torch.rand(100, 3, device=cuda)
+    with pytest.raises(ValueError, match="k=33"):
+        knn_scene(p, p, 33)
+    with pytest.raises(ValueError, match=r"\[n, 3\]"):
+        knn_scene(torch.rand(100, 4, device=cuda), p, 16)
+    with pytest.raises(ValueError, match="mask"):
+        knn_scene(p, p, 16, ref_bid=torch.zeros(100, dtype=torch.int32, device=cuda),
+                  ref_mask=torch.ones(100, dtype=torch.bool))
+
+
+def _post_knn_batch(seed, scenes=4, n=3000, caps=None):
+    """A packed post_knn batch: the host pyramid of 3 levels, no edges."""
+    from pcf_torch.core.batching import pack_scenes
+    from pcf_torch.data.pyramid import subsample
+    from pcf_torch.data.synthetic import synthetic_scene
+
+    items = []
+    for i in range(scenes):
+        coord, norm, feats, labels = synthetic_scene(n, extent=6.0, seed=seed + i)
+        pts, nrm = subsample(coord.astype(np.float32), norm.astype(np.float32),
+                             grid_size=[0.1, 0.2, 0.4])
+        items.append({"point_list": pts, "surface_normal_list": nrm,
+                      "feature_list": feats.astype(np.float32),
+                      "label_list": labels.astype(np.int32)})
+    return pack_scenes(items, level_caps=caps, bucket_multiple=1024)
+
+
+def test_knn_scene_post_knn_prepare_graph_replays_eager(cuda):
+    """make_prepare under post_knn on the card: the first call (eager, then
+    the capture) and a replay on another batch of the same signature give
+    the eager preparation's edges bit for bit; 7 edge sets of 3 levels are 7
+    launches eagerly and 7 in the capture, none in the replay."""
+    from pcf_torch.config import Config
+    from pcf_torch.data.post_knn import make_prepare, prepare
+    from pcf_torch.ops.kernels import knn_scene as mod
+
+    cfg = Config(grid_size=[0.1, 0.2, 0.4], K_self=16, K_forward=16, K_propagate=16,
+                 BATCH_SIZE=4, post_knn=True)
+    caps = (16384, 16384, 8192)
+    prep = make_prepare(cfg)
+    for i, b in enumerate((_post_knn_batch(0, caps=caps), _post_knn_batch(10, caps=caps))):
+        n0 = mod.knn_scene.launches
+        got = prep(b, cuda)
+        assert mod.knn_scene.launches - n0 == (14 if i == 0 else 0)
+        want = prepare(b.to(cuda), cfg)
+        for f in ("edges_self", "edges_forward", "edges_propagate"):
+            for x, y in zip(getattr(got, f), getattr(want, f)):
+                assert torch.equal(x, y), f
+    assert prep.graphs.captures == 1 and prep.graphs.replays == 1
+
+
+@pytest.mark.parametrize("n_scenes", [4, None], ids=["scenes", "row_bound"])
+def test_knn_scene_shared_groupings_equal_each_calls_own(cuda, n_scenes):
+    """compute_knn_packed on the card (each level grouped once as refs and
+    once as queries, the groupings shared by its edge sets) gives the edges
+    of ops/knn.knn called per edge set (each call grouping its own rows),
+    bit for bit; 7 launches for 3 levels."""
+    from pcf_torch.data.post_knn import compute_knn_packed
+    from pcf_torch.ops.kernels import knn_scene as mod
+    from pcf_torch.ops.knn import knn
+
+    b = _post_knn_batch(20).to(cuda)
+    n0 = mod.knn_scene.launches
+    got = compute_knn_packed(b, (16, 16, 16), (16, 9, 16), (5, 16, 16), n_scenes=n_scenes)
+    assert mod.knn_scene.launches - n0 == 7
+
+    def one(q, r, k):
+        return knn(b.points[q], b.points[r], k, query_bid=b.bids[q], ref_bid=b.bids[r],
+                   ref_mask=b.masks[r], n_scenes=n_scenes)
+
+    want = dict(edges_self=[one(i, i, 16) for i in range(3)],
+                edges_forward=[one(1, 0, 9), one(2, 1, 16)],
+                edges_propagate=[one(0, 1, 5), one(1, 2, 16)])
+    for name, sets in want.items():
+        for x, y in zip(getattr(got, name), sets):
+            assert torch.equal(x, y), name
+
+
 # ---- the kernels as custom operators, and the serving path (serve/) -------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
